@@ -1,0 +1,283 @@
+"""GPEN — GAN-prior blind face restoration (reference:
+third_part/GPEN/face_model/gpen_model.py), NCHW. The final full-frame stage
+runs ``FullGenerator(size=2048)`` (GPEN-BFR-2048).
+
+A CNN encoder produces a latent and one feature map per resolution; a
+StyleGAN2 generator consumes the latent while the encoder features are
+concatenated to its activations as "noise" (NoiseInjection with isconcat).
+
+Two hand-written CUDA kernels carry the StyleGAN2 primitives on the card:
+``fused_bias_leaky_relu`` (EqualLinear with fused_lrelu, StyledConv,
+ConvLayer) and ``upfirdn2d`` (blur after each transposed conv, the encoder's
+downsample blur, the ToRGB skip upsample). Modulated convs fold modulation
+and demodulation into input and output channel scales around one shared
+conv, including the transposed-conv upsample.
+
+Blur FIRs are registered as buffers named ``kernel`` where the reference
+registers them, so a GPEN checkpoint's ``state_dict`` loads as it is.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from s2v_torch.ops.kernels import fused_bias_leaky_relu, upfirdn2d
+
+BLUR_TAPS = (1, 3, 3, 1)
+
+
+def make_kernel(k) -> np.ndarray:
+    k = np.asarray(k, np.float32)
+    if k.ndim == 1:
+        k = np.outer(k, k)
+    return k / k.sum()
+
+
+def channels_table(narrow: float, channel_multiplier: float) -> dict:
+    return {
+        4: int(512 * narrow), 8: int(512 * narrow), 16: int(512 * narrow),
+        32: int(512 * narrow), 64: int(256 * channel_multiplier * narrow),
+        128: int(128 * channel_multiplier * narrow),
+        256: int(64 * channel_multiplier * narrow),
+        512: int(32 * channel_multiplier * narrow),
+        1024: int(16 * channel_multiplier * narrow),
+        2048: int(8 * channel_multiplier * narrow),
+    }
+
+
+class _Fir(nn.Module):
+    """Holds a FIR as the reference's ``kernel`` buffer (Blur, Upsample)."""
+
+    def __init__(self, kernel: np.ndarray):
+        super().__init__()
+        self.fir = np.asarray(kernel, np.float32)  # host copy for the launch
+        self.register_buffer("kernel", torch.from_numpy(self.fir.copy()))
+
+
+class EqualConv2d(nn.Module):
+    """gpen_model.py:101-135: weight scaled by 1/sqrt(fan_in) at run time."""
+
+    def __init__(self, cin, cout, kernel, stride=1, padding=0, bias=True):
+        super().__init__()
+        self.weight = nn.Parameter(torch.randn(cout, cin, kernel, kernel))
+        self.scale = 1.0 / math.sqrt(cin * kernel * kernel)
+        self.stride, self.padding = stride, padding
+        self.bias = nn.Parameter(torch.zeros(cout)) if bias else None
+
+    def forward(self, x):
+        b = None if self.bias is None else self.bias.to(x.dtype)
+        return F.conv2d(x, (self.weight * self.scale).to(x.dtype), b,
+                        stride=self.stride, padding=self.padding)
+
+
+class EqualLinear(nn.Module):
+    """gpen_model.py:138-171."""
+
+    def __init__(self, cin, cout, bias_init=0.0, lr_mul=1.0, activation=None):
+        super().__init__()
+        self.weight = nn.Parameter(torch.randn(cout, cin) / lr_mul)
+        self.bias = nn.Parameter(torch.full((cout,), float(bias_init)))
+        self.scale = (1.0 / math.sqrt(cin)) * lr_mul
+        self.lr_mul = lr_mul
+        self.activation = activation
+
+    def forward(self, x):
+        out = F.linear(x, (self.weight * self.scale).to(x.dtype))
+        if self.activation == "fused_lrelu":
+            return fused_bias_leaky_relu(out, self.bias * self.lr_mul)
+        return out + (self.bias * self.lr_mul).to(out.dtype)
+
+
+class FusedLeakyReLU(nn.Module):
+    """Holds the activation's bias; the op is the K1 kernel."""
+
+    def __init__(self, channel: int):
+        super().__init__()
+        self.bias = nn.Parameter(torch.zeros(channel))
+
+    def forward(self, x):
+        return fused_bias_leaky_relu(x, self.bias)
+
+
+class Blur(_Fir):
+    def __init__(self, pad, upsample_factor: int = 1):
+        super().__init__(make_kernel(BLUR_TAPS) * upsample_factor ** 2)
+        self.pad = pad
+
+    def forward(self, x):
+        return upfirdn2d(x, self.fir, pad=self.pad)
+
+
+class Upsample(_Fir):
+    """gpen_model.py:37-55 (factor 2)."""
+
+    def __init__(self):
+        super().__init__(make_kernel(BLUR_TAPS) * 4)
+        p = self.kernel.shape[0] - 2
+        self.pad = ((p + 1) // 2 + 1, p // 2)
+
+    def forward(self, x):
+        return upfirdn2d(x, self.fir, up=2, pad=self.pad)
+
+
+class ModulatedConv2d(nn.Module):
+    """gpen_model.py:187-283 as input/output-scaled shared convs."""
+
+    def __init__(self, cin, cout, kernel, style_dim, demodulate=True,
+                 upsample=False):
+        super().__init__()
+        self.kernel_size, self.upsample, self.demodulate = kernel, upsample, demodulate
+        self.scale = 1.0 / math.sqrt(cin * kernel * kernel)
+        self.weight = nn.Parameter(torch.randn(1, cout, cin, kernel, kernel))
+        self.modulation = EqualLinear(style_dim, cin, bias_init=1.0)
+        if upsample:
+            p = (len(BLUR_TAPS) - 2) - (kernel - 1)
+            self.blur = Blur(((p + 1) // 2 + 1, p // 2 + 1), upsample_factor=2)
+
+    def forward(self, x, style):
+        w = self.weight[0] * self.scale  # [Cout, Cin, k, k]
+        s = self.modulation(style)  # [B, Cin]
+        xs = x * s[:, :, None, None].to(x.dtype)
+        if self.upsample:
+            out = F.conv_transpose2d(xs, w.transpose(0, 1).to(x.dtype), stride=2)
+        else:
+            out = F.conv2d(xs, w.to(x.dtype), padding=self.kernel_size // 2)
+        if self.demodulate:
+            w2 = w.float().square().sum(dim=(2, 3))  # [Cout, Cin]
+            demod = torch.rsqrt(s.float().square() @ w2.t() + 1e-8)
+            out = out * demod[:, :, None, None].to(out.dtype)
+        if self.upsample:
+            out = self.blur(out)
+        return out
+
+
+class NoiseInjection(nn.Module):
+    def __init__(self):
+        super().__init__()
+        self.weight = nn.Parameter(torch.zeros(1))
+
+
+class StyledConv(nn.Module):
+    """gpen_model.py:316-352: modconv -> concat encoder "noise" -> fused act."""
+
+    def __init__(self, cin, cout, kernel, style_dim, upsample=False):
+        super().__init__()
+        self.conv = ModulatedConv2d(cin, cout, kernel, style_dim, upsample=upsample)
+        self.noise = NoiseInjection()
+        self.activate = FusedLeakyReLU(cout * 2)
+
+    def forward(self, x, style, noise):
+        out = self.conv(x, style)
+        noise = self.noise.weight.to(out.dtype) * noise.to(out.dtype)
+        return self.activate(torch.cat([out, noise], dim=1))
+
+
+class ToRGB(nn.Module):
+    """gpen_model.py:355-377."""
+
+    def __init__(self, cin, style_dim, upsample=True):
+        super().__init__()
+        if upsample:
+            self.upsample = Upsample()
+        self.conv = ModulatedConv2d(cin, 3, 1, style_dim, demodulate=False)
+        self.bias = nn.Parameter(torch.zeros(1, 3, 1, 1))
+
+    def forward(self, x, style, skip=None):
+        out = self.conv(x, style) + self.bias.to(x.dtype)
+        if skip is not None:
+            out = out + self.upsample(skip)
+        return out
+
+
+class ConvLayer(nn.Sequential):
+    """gpen_model.py:557-605: [Blur,] EqualConv2d, FusedLeakyReLU."""
+
+    def __init__(self, cin, cout, kernel, downsample=False):
+        layers = []
+        if downsample:
+            p = (len(BLUR_TAPS) - 2) + (kernel - 1)
+            layers.append(Blur(((p + 1) // 2, p // 2)))
+            stride, padding = 2, 0
+        else:
+            stride, padding = 1, kernel // 2
+        layers += [EqualConv2d(cin, cout, kernel, stride, padding, bias=False),
+                   FusedLeakyReLU(cout)]
+        super().__init__(*layers)
+
+
+class PixelNorm(nn.Module):
+    def forward(self, x):
+        return x * torch.rsqrt(torch.mean(x * x, dim=1, keepdim=True) + 1e-8)
+
+
+class Generator(nn.Module):
+    """gpen_model.py:380-551 with isconcat (GAN-prior) noise."""
+
+    def __init__(self, size, style_dim=512, n_mlp=8, channel_multiplier=2,
+                 lr_mlp=0.01, narrow=1.0):
+        super().__init__()
+        ch = channels_table(narrow, channel_multiplier)
+        log_size = int(math.log2(size))
+        self.style = nn.Sequential(PixelNorm(), *[
+            EqualLinear(style_dim, style_dim, lr_mul=lr_mlp, activation="fused_lrelu")
+            for _ in range(n_mlp)])
+        self.input = nn.Module()
+        self.input.input = nn.Parameter(torch.randn(1, ch[4], 4, 4))
+        self.conv1 = StyledConv(ch[4], ch[4], 3, style_dim)
+        self.to_rgb1 = ToRGB(ch[4] * 2, style_dim, upsample=False)
+        self.convs, self.to_rgbs = nn.ModuleList(), nn.ModuleList()
+        cin = ch[4]
+        for i in range(3, log_size + 1):
+            cout = ch[2 ** i]
+            self.convs.append(StyledConv(cin * 2, cout, 3, style_dim, upsample=True))
+            self.convs.append(StyledConv(cout * 2, cout, 3, style_dim))
+            self.to_rgbs.append(ToRGB(cout * 2, style_dim))
+            cin = cout
+
+    def forward(self, styles, noise):
+        latent = self.style(styles)  # [B, style_dim]; every layer's latent
+        out = self.input.input.to(latent.dtype).repeat(latent.shape[0], 1, 1, 1)
+        out = self.conv1(out, latent, noise[0])
+        skip = self.to_rgb1(out, latent)
+        for k, to_rgb in enumerate(self.to_rgbs):
+            out = self.convs[2 * k](out, latent, noise[2 * k + 1])
+            out = self.convs[2 * k + 1](out, latent, noise[2 * k + 2])
+            skip = to_rgb(out, latent, skip)
+        return skip
+
+
+class FullGenerator(nn.Module):
+    """gpen_model.py:628-690: encoder -> latent + per-level features as the
+    generator's concat noise; input and output at ``size``."""
+
+    def __init__(self, size=512, style_dim=512, n_mlp=8, channel_multiplier=2,
+                 narrow=1.0):
+        super().__init__()
+        ch = channels_table(narrow, channel_multiplier)
+        self.log_size = int(math.log2(size))
+        self.generator = Generator(size, style_dim, n_mlp, channel_multiplier,
+                                   narrow=narrow)
+        self.ecd0 = nn.Sequential(ConvLayer(3, ch[size], 1))
+        cin = ch[size]
+        for idx, i in enumerate(range(self.log_size, 2, -1)):
+            cout = ch[2 ** (i - 1)]
+            self.add_module(f"ecd{idx + 1}",
+                            nn.Sequential(ConvLayer(cin, cout, 3, downsample=True)))
+            cin = cout
+        self.final_linear = nn.Sequential(
+            EqualLinear(ch[4] * 4 * 4, style_dim, activation="fused_lrelu"))
+
+    def forward(self, x):
+        feats = []
+        for idx in range(self.log_size - 1):
+            x = getattr(self, f"ecd{idx}")(x)
+            feats.append(x)
+        latent = self.final_linear(x.flatten(1))
+        # encoder features as noise: each twice, deepest first, drop the first
+        noise = [f for f in feats for _ in range(2)][::-1][1:]
+        return self.generator(latent, noise)

@@ -1,0 +1,68 @@
+"""RRDBNet (Real-ESRGAN) — the RealESRNet x2 background super-resolution of
+GPEN's final enhancement (reference: third_part/GPEN/sr_model/
+rrdbnet_arch.py), NCHW, input in [0, 1]."""
+
+from __future__ import annotations
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from s2v_torch.ops.image import resize_nearest
+
+
+def _conv(cin, cout):
+    return nn.Conv2d(cin, cout, 3, 1, 1)
+
+
+class ResidualDenseBlock(nn.Module):
+    def __init__(self, num_feat=64, num_grow_ch=32):
+        super().__init__()
+        for k in range(1, 5):
+            self.add_module(f"conv{k}", _conv(num_feat + (k - 1) * num_grow_ch, num_grow_ch))
+        self.conv5 = _conv(num_feat + 4 * num_grow_ch, num_feat)
+
+    def forward(self, x):
+        feats = [x]
+        for k in range(1, 5):
+            feats.append(F.leaky_relu(getattr(self, f"conv{k}")(torch.cat(feats, 1)), 0.2))
+        return self.conv5(torch.cat(feats, 1)) * 0.2 + x
+
+
+class RRDB(nn.Module):
+    def __init__(self, num_feat, num_grow_ch=32):
+        super().__init__()
+        self.rdb1 = ResidualDenseBlock(num_feat, num_grow_ch)
+        self.rdb2 = ResidualDenseBlock(num_feat, num_grow_ch)
+        self.rdb3 = ResidualDenseBlock(num_feat, num_grow_ch)
+
+    def forward(self, x):
+        return self.rdb3(self.rdb2(self.rdb1(x))) * 0.2 + x
+
+
+class RRDBNet(nn.Module):
+    """rrdbnet_arch.py:66-116. scale 2 and 1 pixel-unshuffle the input first
+    (channel order c * s^2 + dy * s + dx, ``F.pixel_unshuffle``'s)."""
+
+    def __init__(self, num_in_ch=3, num_out_ch=3, scale=4, num_feat=64,
+                 num_block=23, num_grow_ch=32):
+        super().__init__()
+        self.scale = scale
+        cin = num_in_ch * {2: 4, 1: 16}.get(scale, 1)
+        self.conv_first = _conv(cin, num_feat)
+        self.body = nn.Sequential(*[RRDB(num_feat, num_grow_ch) for _ in range(num_block)])
+        self.conv_body = _conv(num_feat, num_feat)
+        self.conv_up1 = _conv(num_feat, num_feat)
+        self.conv_up2 = _conv(num_feat, num_feat)
+        self.conv_hr = _conv(num_feat, num_feat)
+        self.conv_last = _conv(num_feat, num_out_ch)
+
+    def forward(self, x):
+        if self.scale in (1, 2):
+            x = F.pixel_unshuffle(x, 4 // self.scale)
+        feat = self.conv_first(x)
+        feat = feat + self.conv_body(self.body(feat))
+        for conv in (self.conv_up1, self.conv_up2):
+            h, w = feat.shape[-2:]
+            feat = F.leaky_relu(conv(resize_nearest(feat, (2 * h, 2 * w))), 0.2)
+        return self.conv_last(F.leaky_relu(self.conv_hr(feat), 0.2))
