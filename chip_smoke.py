@@ -9,10 +9,12 @@ result line:
    nvcc per source, all started together) and print the build seconds and
    each kernel's register use.
 2. kernels: call each kernel's wrapper at the shapes GPEN-BFR-2048 gives it
-   on the main path (plus a down=2 and a negative-pad upfirdn2d case) and
-   hold it against its plain PyTorch version, in f32 and bf16; print the
-   error against its tolerance, the kernel, plain and library times (CUDA
-   events) and the least time the card could take.
+   on the inference path (plus a down=2 and a negative-pad upfirdn2d case)
+   and at the shapes GPEN-BFR-512 training gives it (K1 and K2 at the last
+   StyledConv's [4, 128, 512, 512], K2 with and without b; K3's forward and
+   backward configurations) and hold it against its plain PyTorch version,
+   in f32 and bf16; print the error against its tolerance, the kernel, plain
+   and library times (CUDA events) and the least time the card could take.
 3. reference: the slice at slim widths on the card (kernels) and on the CPU
    (plain versions), f32, must agree on the output frames.
 4. slice: the full-width models (ENet/LNet defaults, GPEN-BFR-2048,
@@ -20,10 +22,23 @@ result line:
    ``melspectrogram`` -> ``LipSyncPipeline.synthesize`` with the final hook
    on 8 synthetic 512x512 frames and 0.4 s of synthetic speech. The launch
    counts are reset just before this run and read just after; each kernel
-   must have run, 38 and 27 times per frame.
+   must have run, 38 and 27 times per frame (K2 not at all).
+5. train reference: one R1 d_step, one g_step and one plain d_step of
+   ``s2v_torch.train.gan.make_gan_trainer`` at slim widths on the card and
+   on the CPU from the same weights and batch; metrics and every parameter
+   gradient must agree.
+6. train: GPEN-BFR-512 (FullGenerator and Discriminator at full width,
+   random weights from a fixed seed), batch 4 at 512^2 from
+   ``face_batches`` over 8 synthetic faces, step pairs 0-16 (R1 at 0 and
+   16), f32. The launch counts are reset just before and read just after;
+   every step's K1, K2 and K3 launches must equal the counts that
+   ``s2v_torch.train.gan.expected_train_launches`` derives from the models.
+   Then one g_step under torch.profiler.
 
-The line before the last is one JSON object with every kernel's numbers;
-the last is ``{"ok": true, "device": {...}}``. Details go to
+Every time printed stands beside the card's name and power limit (printed
+first). The line before the last is one JSON object with every kernel's
+numbers, its launches summed over both main paths (inference slice and
+training) and split by path; the last is ``{"ok": true, "device": {...}}``. Details go to
 chiprun_out/chip_smoke.json. TF32 is off throughout (f32 convs and matmuls
 run in full f32).
 """
@@ -104,7 +119,8 @@ def phase_build():
     t = time.perf_counter()
     _build.build(["fused_act", "upfirdn2d"])
     secs = time.perf_counter() - t
-    print(f"build: {secs:.1f} s (nvcc, sm_90a, both kernels in parallel)")
+    print(f"build: {secs:.1f} s (nvcc, sm_90a, both sources in parallel: K1 and K2 in "
+          "fused_act.cu, K3 in upfirdn2d.cu)")
     for name in ("fused_act", "upfirdn2d"):
         log = _build.library_path(name).with_suffix(".log")
         for line in log.read_text().splitlines():
@@ -181,10 +197,15 @@ def phase_kernels(torch):
             cases.append(case)
             del x, xp, got, want
 
+    cases += train_kernel_cases(torch, g, tol)
+
     for c in cases:
         ok = c["max_abs_err"] <= c["tol"]
         extra = (f" up={c['up']} down={c['down']} pad={tuple(c['pad'])}"
+                 + (f" pad_x={tuple(c['pad_x'])}" if "pad_x" in c else "")
                  if c["kernel"] == "upfirdn2d" else "")
+        if c["kernel"] == "fused_act_bwd":
+            extra = " with b" if c["with_b"] else " no b"
         lib = "n/a" if c["library_ms"] is None else f"{c['library_ms']:.4f}"
         print(f"kernel {c['kernel']} {tuple(c['shape'])} {c['dtype']}{extra}: "
               f"max_abs_err {c['max_abs_err']:.3g} (tol {c['tol']:.3g}) "
@@ -192,6 +213,93 @@ def phase_kernels(torch):
               f"library {lib} bound {c['bound_ms']:.4f} ({c['bound_by']})")
         if not ok:
             fail(f"{c['kernel']} {c['shape']} {c['dtype']} disagrees with its plain version")
+    return cases
+
+
+def train_kernel_cases(torch, g, tol):
+    """K1 at the training path's largest activation, K2 at that shape, at a
+    ragged one and at a [B, C] one, with and without b, and K3's GPEN-512
+    forward configurations with their backward (gradient) configurations."""
+    import torch.nn.functional as F
+
+    from s2v_torch.models.gpen import BLUR_TAPS, make_kernel
+    from s2v_torch.ops.kernels import (fused_bias_leaky_relu, fused_bias_leaky_relu_bwd,
+                                       fused_bias_leaky_relu_bwd_plain,
+                                       fused_bias_leaky_relu_plain, upfirdn2d_plain)
+    from s2v_torch.ops.kernels.upfirdn2d import (grad_pad, out_size, stuff_and_pad,
+                                                 upfirdn2d_fwd)
+
+    dev = torch.device("cuda")
+    cases = []
+    big = (4, 128, 512, 512)  # the last StyledConv after its noise concat
+    x = torch.randn(big, generator=g, device=dev)
+    b = torch.randn(big[1], generator=g, device=dev)
+    want = fused_bias_leaky_relu_plain(x, b)
+    err = (fused_bias_leaky_relu(x, b) - want).abs().max().item()
+    n = x.numel()
+    bms, by = bound_ms(2 * n * 4 + 4 * big[1], 4 * n)
+    cases.append(dict(kernel="fused_act", shape=list(big), dtype="float32", max_abs_err=err,
+                      tol=tol(torch.float32, want),
+                      ms=event_ms(torch, lambda: fused_bias_leaky_relu(x, b)),
+                      plain_ms=event_ms(torch, lambda: fused_bias_leaky_relu_plain(x, b)),
+                      bound_ms=bms, bound_by=by, library_ms=None, path="train"))
+    del x, want
+
+    for shape in (big, (3, 37, 33, 29), (4, 512)):
+        for dtype in (torch.float32, torch.bfloat16):
+            for with_b in (False, True):
+                gr = torch.randn(shape, generator=g, device=dev).to(dtype)
+                out = torch.randn(shape, generator=g, device=dev).to(dtype)
+                bb = torch.randn(shape[1], generator=g, device=dev) if with_b else None
+                got = fused_bias_leaky_relu_bwd(gr, out, bb)
+                want = fused_bias_leaky_relu_bwd_plain(gr, out, bb)
+                torch.cuda.synchronize()
+                err = (got.float() - want.float()).abs().max().item()
+                n = gr.numel()
+                # reads g and out, writes dx (and b); add, compare, multiply
+                bms, by = bound_ms(3 * n * gr.element_size() + (4 * shape[1] if with_b else 0),
+                                   (3 if with_b else 2) * n)
+                cases.append(dict(
+                    kernel="fused_act_bwd", shape=list(shape), dtype=str(dtype)[6:],
+                    with_b=with_b, max_abs_err=err, tol=tol(dtype, want),
+                    ms=event_ms(torch, lambda: fused_bias_leaky_relu_bwd(gr, out, bb)),
+                    plain_ms=event_ms(torch, lambda: fused_bias_leaky_relu_bwd_plain(gr, out, bb)),
+                    bound_ms=bms, bound_by=by, library_ms=None, path="train"))
+                del gr, out, got, want
+
+    blur = make_kernel(BLUR_TAPS)
+    fwd = [((4, 64, 513, 513), 1, 1, (1, 1), blur * 4),  # after the last transposed conv
+           ((4, 64, 512, 512), 1, 1, (2, 2), blur),      # before a stride-2 3x3 conv
+           ((4, 64, 512, 512), 1, 1, (1, 1), blur),      # D's skip, before a stride-2 1x1
+           ((4, 3, 256, 256), 2, 1, (2, 1), blur * 4)]   # ToRGB skip upsample
+    configs = []
+    for shape, up, down, pad, fir in fwd:
+        configs.append((shape, fir, up, down, pad, pad, "forward"))
+        o = out_size(shape[2], fir.shape[0], up, down, pad)
+        gp = grad_pad(shape[2], o, fir.shape[0], up, down, pad)
+        configs.append(((shape[0], shape[1], o, o), np.ascontiguousarray(fir[::-1, ::-1]),
+                        down, up, gp, gp, "backward"))
+    for shape, fir, up, down, py, px, role in configs:
+        x = torch.randn(shape, generator=g, device=dev)
+        got = upfirdn2d_fwd(x, fir, up, down, py, px)
+        want = upfirdn2d_plain(x, fir, up, down, py, px)
+        torch.cuda.synchronize()
+        err = (math.inf if got.shape != want.shape
+               else (got - want).abs().max().item())
+        bms, by = bound_ms((x.numel() + got.numel()) * 4, 2 * fir.size / (up * up) * got.numel())
+        xp = stuff_and_pad(x, up, py, px)
+        w = torch.flip(torch.as_tensor(fir, device=dev), (0, 1))[None, None].repeat(
+            shape[1], 1, 1, 1)
+        cases.append(dict(
+            kernel="upfirdn2d", shape=list(shape), up=up, down=down, pad=list(py),
+            pad_x=list(px), dtype="float32", role=role, max_abs_err=err,
+            tol=tol(torch.float32, want),
+            ms=event_ms(torch, lambda: upfirdn2d_fwd(x, fir, up, down, py, px)),
+            plain_ms=event_ms(torch, lambda: upfirdn2d_plain(x, fir, up, down, py, px)),
+            bound_ms=bms, bound_by=by, path="train",
+            library_ms=event_ms(torch, lambda: F.conv2d(xp, w, stride=down,
+                                                        groups=shape[1]))))
+        del x, xp, got, want
     return cases
 
 
@@ -342,11 +450,11 @@ def phase_slice(torch, card):
         fail(f"slice output {out.shape} {out.dtype}, want ({n}, 1024, 1024, 3) uint8")
     if not std > 0:
         fail("slice output is constant")
-    want = {"fused_act": 38 * n, "upfirdn2d": 27 * n}
+    want = {"fused_act": 38 * n, "fused_act_bwd": 0, "upfirdn2d": 27 * n}
     for name, count in launches.items():
         print(f"slice: {name} launches {count} on the main path "
               f"({count / n:.1f} per frame; expected {want[name] // n})")
-        if count == 0:
+        if count == 0 and want[name]:
             fail(f"{name} never launched on the main path")
         elif count != want[name]:
             fail(f"{name} launched {count} times, expected {want[name]}")
@@ -375,6 +483,12 @@ def profile_slice(torch, pipe, x, unprofiled_ms):
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
 
+    return dict(profile_rows(prof, "one slice run", unprofiled_ms), wall_ms=wall_ms)
+
+
+def profile_rows(prof, what, unprofiled_ms):
+    """Device time by kernel from a torch.profiler run, and the device's busy
+    share of the unprofiled run's wall time (the profiler slows the host)."""
     def dev_us(e):
         return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
 
@@ -384,15 +498,203 @@ def profile_slice(torch, pipe, x, unprofiled_ms):
     rows.sort(key=dev_us, reverse=True)
     top = [dict(name=e.key[:90], calls=e.count, ms=dev_us(e) / 1e3) for e in rows[:15]]
     if busy_ms == 0:
-        print("profile: the profiler saw no device time (not measured)")
+        print(f"profile: {what}: the profiler saw no device time (not measured)")
     else:
-        print(f"profile: one slice run: device busy {busy_ms:.1f} ms, "
+        print(f"profile: {what}: device busy {busy_ms:.1f} ms, "
               f"{100 * busy_ms / unprofiled_ms:.1f}% of the unprofiled wall "
-              f"{unprofiled_ms:.1f} ms (wall under the profiler {wall_ms:.1f} ms)")
+              f"{unprofiled_ms:.1f} ms")
         for r in top[:10]:
             print(f"  {r['ms']:8.2f} ms {r['calls']:5d}x  {r['name']}")
-    return dict(wall_ms=wall_ms, busy_ms=busy_ms,
-                busy_share=busy_ms / unprofiled_ms, top=top)
+    return dict(busy_ms=busy_ms, busy_share=busy_ms / unprofiled_ms, top=top)
+
+
+def synthetic_faces(n, size, seed):
+    """Smooth face-like uint8 images: a skin-toned ellipse with darker eyes
+    and mouth on a gradient background, jittered per image."""
+    rng = np.random.RandomState(seed)
+    yy, xx = (np.mgrid[0:size, 0:size] + 0.5) / size
+    out = np.empty((n, size, size, 3), np.uint8)
+    for i in range(n):
+        cx, cy = 0.5 + rng.uniform(-0.05, 0.05, 2)
+        img = np.stack([xx * 120 + 60, yy * 100 + 50, (xx + yy) * 60 + 40], -1)
+        face = ((xx - cx) / 0.32) ** 2 + ((yy - cy) / 0.42) ** 2 < 1
+        img[face] = rng.uniform(150, 230) * np.array([1.0, 0.8, 0.65])
+        for ex in (-0.12, 0.12):
+            img[((xx - cx - ex) / 0.06) ** 2 + ((yy - cy + 0.1) / 0.03) ** 2 < 1] = 40
+        img[((xx - cx) / 0.14) ** 2 + ((yy - cy - 0.2) / 0.04) ** 2 < 1] = (150, 50, 60)
+        out[i] = np.clip(img + rng.randn(size, size, 3) * 4, 0, 255).astype(np.uint8)
+    return out
+
+
+def gan_models(torch, size, seed, **kw):
+    from s2v_torch.models.gpen import Discriminator, FullGenerator
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        g = FullGenerator(size=size, **kw)
+        d = Discriminator(size=size, channel_multiplier=kw.get("channel_multiplier", 2),
+                          narrow=kw.get("narrow", 1.0))
+    return g, d
+
+
+def train_batches(size, n_images, batch, n_batches, seed):
+    """``face_batches`` over synthetic faces, JPEG off (the card's machine has
+    no Pillow); returns the batches and the host seconds per batch."""
+    from s2v_torch.prep.degradations import GFPGANDegrader, face_batches
+
+    faces = synthetic_faces(n_images, size, seed)
+    t = time.perf_counter()
+    batches = list(face_batches(faces, batch, rng=np.random.default_rng(seed),
+                                degrader=GFPGANDegrader(jpeg_range=None), steps=n_batches))
+    return batches, (time.perf_counter() - t) / n_batches
+
+
+def phase_train_reference(torch):
+    """One R1 d_step, one g_step and one plain d_step at slim widths on the
+    card (kernels) and on the CPU (plain versions), each step started from
+    the CPU's parameters of the moment; metrics within rtol 1e-3 and every
+    parameter gradient within 5e-3 of that parameter's largest (f32, cuDNN
+    and the CPU sum in other orders, through a double backward)."""
+    from s2v_torch.train.gan import make_gan_trainer
+
+    kw = dict(narrow=0.25, channel_multiplier=0.5, style_dim=64, n_mlp=2)
+    g, d = gan_models(torch, 64, 2, **kw)
+    batches, _ = train_batches(64, 4, 4, 1, seed=2)
+    runs = {dev: make_gan_trainer(copy.deepcopy(g), copy.deepcopy(d), device=dev)
+            for dev in ("cpu", "cuda")}
+    worst, worst_metric = 0.0, 0.0
+    for kind in ("d_r1", "g", "d"):
+        ref = runs["cpu"][0]
+        for mod in ("g", "d"):
+            getattr(runs["cuda"][0], mod).load_state_dict(getattr(ref, mod).state_dict())
+        out = {}
+        for dev, (state, d_step, g_step) in runs.items():
+            _, m = (g_step if kind == "g" else d_step)(state, batches[0])
+            module = state.g if kind == "g" else state.d
+            out[dev] = ({k: float(v) for k, v in m.items()},
+                        {k: None if p.grad is None else p.grad.detach().cpu()
+                         for k, p in module.named_parameters()})
+        (m_cpu, g_cpu), (m_dev, g_dev) = out["cpu"], out["cuda"]
+        for k in m_cpu:
+            rel = abs(m_dev[k] - m_cpu[k]) / max(abs(m_cpu[k]), 1e-6)
+            worst_metric = max(worst_metric, rel)
+            if rel > 1e-3:
+                fail(f"train reference {kind}: metric {k} card {m_dev[k]} vs CPU {m_cpu[k]}")
+        for k, want in g_cpu.items():
+            got = g_dev[k]
+            if (got is None) != (want is None):
+                fail(f"train reference {kind}: {k} has a gradient on one device only")
+                continue
+            if want is None:
+                continue
+            scale = max(want.abs().max().item(), 1e-30)
+            ratio = (got - want).abs().max().item() / scale
+            worst = max(worst, ratio)
+            if not ratio <= 5e-3:
+                fail(f"train reference {kind}: gradient of {k} off by {ratio:.2e} of its scale")
+        print(f"train reference {kind}: metrics {m_dev} (CPU {m_cpu})")
+    print(f"train reference: slim GPEN-64 card vs CPU, worst metric rel {worst_metric:.2e} "
+          f"(tol 1e-3), worst gradient err / scale {worst:.2e} (tol 5e-3) "
+          f"{'ok' if worst <= 5e-3 and worst_metric <= 1e-3 else 'FAIL'}")
+    return dict(worst_grad_ratio=worst, worst_metric_rel=worst_metric)
+
+
+def phase_train(torch, card):
+    """GPEN-BFR-512 adversarial training steps 0-16 at full width."""
+    from s2v_torch.ops.kernels import launch_counts, reset_launch_counts
+    from s2v_torch.train.gan import expected_train_launches, make_gan_trainer
+
+    t = time.perf_counter()
+    g, d = gan_models(torch, 512, 0, channel_multiplier=2, narrow=1.0, style_dim=512, n_mlp=8)
+    want = expected_train_launches(g, d)
+    print(f"train: built GPEN-BFR-512 G ({sum(p.numel() for p in g.parameters()) / 1e6:.1f}M "
+          f"params) and D ({sum(p.numel() for p in d.parameters()) / 1e6:.1f}M) in "
+          f"{time.perf_counter() - t:.1f} s; launches per step derived from the models: {want}")
+    batches, host_s = train_batches(512, 8, 4, 2, seed=0)
+    print(f"train: face_batches host {host_s:.2f} s per batch of 4 at 512^2 (JPEG off)")
+    batches = [{k: torch.as_tensor(v).cuda() for k, v in b.items()} for b in batches]
+    state, d_step, g_step = make_gan_trainer(g, d, d_reg_every=16)
+    init = {f"{m}.{k}": p.detach().clone() for m in ("g", "d")
+            for k, p in getattr(state, m).named_parameters()}
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    steps = []
+    t_run = time.perf_counter()
+    for pair in range(17):
+        batch = batches[pair % 2]
+        for kind, fn in (("d_r1" if state.step % 16 == 0 else "d", d_step), ("g", g_step)):
+            before = launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = fn(state, batch)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            after = launch_counts()
+            steps.append(dict(pair=pair, kind=kind, ms=ms,
+                              metrics={k: float(v) for k, v in m.items()},
+                              launches={k: after[k] - before[k] for k in after}))
+    run_s = time.perf_counter() - t_run
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    for st in steps:
+        if st["launches"] != want[st["kind"]]:
+            fail(f"train pair {st['pair']} {st['kind']}: launches {st['launches']}, "
+                 f"expected {want[st['kind']]}")
+        if not all(math.isfinite(v) for v in st["metrics"].values()):
+            fail(f"train pair {st['pair']} {st['kind']}: metrics {st['metrics']}")
+    r1_steps = [st for st in steps if st["kind"] == "d_r1"]
+    if [st["pair"] for st in r1_steps] != [0, 16] or not all(
+            st["metrics"]["r1"] > 0 for st in r1_steps):
+        fail(f"train: R1 ran at pairs {[st['pair'] for st in r1_steps]}, want 0 and 16")
+    for name, count in launches.items():
+        total = sum(st["launches"][name] for st in steps)
+        print(f"train: {name} launches {count} on the main path (per R1 d_step "
+              f"{want['d_r1'][name]}, per d_step {want['d'][name]}, per g_step "
+              f"{want['g'][name]}; steps sum to {total})")
+        if count == 0:
+            fail(f"{name} never launched on the training path")
+        elif count != total:
+            fail(f"{name}: {count} launches, the steps sum to {total}")
+    changed = {m: sum(not torch.equal(p, init[f"{m}.{k}"])
+                      for k, p in getattr(state, m).named_parameters()) for m in ("g", "d")}
+    ema_moved = sum(not torch.equal(p, init[f"g.{k}"]) for k, p in state.g_ema.named_parameters())
+    n_g = len(list(state.g.parameters()))
+    print(f"train: parameters changed G {changed['g']}/{n_g}, D {changed['d']}/"
+          f"{len(list(state.d.parameters()))}; EMA moved {ema_moved}/{n_g}; step {state.step}")
+    if changed["g"] == 0 or changed["d"] == 0 or ema_moved == 0 or state.step != 17:
+        fail("train: the parameters or the EMA did not move")
+
+    def mean(vals):
+        return sum(vals) / len(vals)
+
+    steady = [st for st in steps if 1 <= st["pair"] <= 15]
+    d_ms = mean([st["ms"] for st in steady if st["kind"] == "d"])
+    g_ms = mean([st["ms"] for st in steady if st["kind"] == "g"])
+    pairs_per_s = 15 / (sum(st["ms"] for st in steady) / 1e3)
+    r1_ms = steps[32]["ms"]  # pair 16's d_step
+    last = steps[-1]["metrics"]
+    print(f"train: R1 d_step (step 16) {r1_ms:.1f} ms; d_step {d_ms:.1f} ms, g_step "
+          f"{g_ms:.1f} ms (means over pairs 1-15); {pairs_per_s:.3f} step pairs/s; "
+          f"pair 0 (cuDNN warm-up) {steps[0]['ms']:.1f} + {steps[1]['ms']:.1f} ms; "
+          f"17 pairs {run_s:.1f} s; peak {peak:.1f} GiB; last g_step {last}; {card}")
+    per = dict(r1_d_step_ms=r1_ms, d_step_ms=d_ms, g_step_ms=g_ms, pairs_per_s=pairs_per_s,
+               host_s_per_batch=host_s, peak_gib=peak, steps=steps, expected=want,
+               profile=profile_g_step(torch, state, g_step, batches[0], g_ms))
+    return launches, per
+
+
+def profile_g_step(torch, state, g_step, batch, unprofiled_ms):
+    """One more g_step under torch.profiler (after the launch counts were
+    read): device time by kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        g_step(state, batch)
+        torch.cuda.synchronize()
+    return profile_rows(prof, "one g_step", unprofiled_ms)
 
 
 def main():
@@ -411,7 +713,7 @@ def main():
                           "--format=csv,noheader"], capture_output=True, text=True)
     card = smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else "unknown"
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
-          f"{torch.cuda.get_device_name(0)}", flush=True)
+          f"{torch.cuda.get_device_name(0)}; {card}", flush=True)
 
     t_start = time.perf_counter()
     report = {"card": card, "build_s": phase_build()}
@@ -419,23 +721,30 @@ def main():
     report["kernel_cases"] = cases
     report["reference"] = phase_reference(torch)
     launches, report["slice"] = phase_slice(torch, card)
+    report["train_reference"] = phase_train_reference(torch)
+    train_launches, report["train"] = phase_train(torch, card)
     report["seconds"] = time.perf_counter() - t_start
 
-    def main_case(name, dtype):  # the main path's largest shape, in bf16
+    def main_case(name, dtype):  # the first case at a main path's largest shape
         return next(c for c in cases if c["kernel"] == name and c["dtype"] == dtype)
 
     kernels = []
-    for name, source, replaces in (
-            ("fused_act", "s2v_torch/csrc/fused_act.cu", "s2v_tpu/ops/pallas/fused_act.py:63"),
+    for name, source, replaces, dtype in (
+            ("fused_act", "s2v_torch/csrc/fused_act.cu", "s2v_tpu/ops/pallas/fused_act.py:63",
+             "bfloat16"),
+            ("fused_act_bwd", "s2v_torch/csrc/fused_act.cu",
+             "s2v_tpu/ops/pallas/fused_act.py:88", "float32"),
             ("upfirdn2d", "s2v_torch/csrc/upfirdn2d.cu",
-             "s2v_tpu/ops/pallas/upfirdn2d.py:174")):
-        c = main_case(name, "bfloat16")
+             "s2v_tpu/ops/pallas/upfirdn2d.py:174", "bfloat16")):
+        c = main_case(name, dtype)
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=launches[name],
+            launches=launches[name] + train_launches[name],
+            launches_by_path=dict(slice=launches[name], train=train_launches[name]),
             max_abs_err=max(k["max_abs_err"] for k in cases if k["kernel"] == name),
             ms=c["ms"], plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
-            bound_by=c["bound_by"], library_ms=c["library_ms"], shape=c["shape"]))
+            bound_by=c["bound_by"], library_ms=c["library_ms"], shape=c["shape"],
+            dtype=dtype))
     report["kernels"] = kernels
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

@@ -1,6 +1,8 @@
 """GPEN — GAN-prior blind face restoration (reference:
 third_part/GPEN/face_model/gpen_model.py), NCHW. The final full-frame stage
-runs ``FullGenerator(size=2048)`` (GPEN-BFR-2048).
+runs ``FullGenerator(size=2048)`` (GPEN-BFR-2048); adversarial training
+(``s2v_torch.train.gan``) pairs a ``FullGenerator`` with the
+``Discriminator``.
 
 A CNN encoder produces a latent and one feature map per resolution; a
 StyleGAN2 generator consumes the latent while the encoder features are
@@ -12,6 +14,9 @@ ConvLayer) and ``upfirdn2d`` (blur after each transposed conv, the encoder's
 downsample blur, the ToRGB skip upsample). Modulated convs fold modulation
 and demodulation into input and output channel scales around one shared
 conv, including the transposed-conv upsample.
+
+Both kernels are ``torch.autograd.Function``s whose backward and double
+backward (R1) are kernels too.
 
 Blur FIRs are registered as buffers named ``kernel`` where the reference
 registers them, so a GPEN checkpoint's ``state_dict`` loads as it is.
@@ -195,9 +200,11 @@ class ToRGB(nn.Module):
 
 
 class ConvLayer(nn.Sequential):
-    """gpen_model.py:557-605: [Blur,] EqualConv2d, FusedLeakyReLU."""
+    """gpen_model.py:557-605: [Blur,] a bias-free EqualConv2d, then
+    FusedLeakyReLU when ``activate``. These are the two variants the GPEN
+    models use: (bias, activate) and, for ResBlock's skip, neither."""
 
-    def __init__(self, cin, cout, kernel, downsample=False):
+    def __init__(self, cin, cout, kernel, downsample=False, activate=True):
         layers = []
         if downsample:
             p = (len(BLUR_TAPS) - 2) + (kernel - 1)
@@ -205,9 +212,23 @@ class ConvLayer(nn.Sequential):
             stride, padding = 2, 0
         else:
             stride, padding = 1, kernel // 2
-        layers += [EqualConv2d(cin, cout, kernel, stride, padding, bias=False),
-                   FusedLeakyReLU(cout)]
+        layers.append(EqualConv2d(cin, cout, kernel, stride, padding, bias=False))
+        if activate:
+            layers.append(FusedLeakyReLU(cout))
         super().__init__(*layers)
+
+
+class ResBlock(nn.Module):
+    """gpen_model.py:607-626 (the Discriminator's block)."""
+
+    def __init__(self, cin, cout):
+        super().__init__()
+        self.conv1 = ConvLayer(cin, cin, 3)
+        self.conv2 = ConvLayer(cin, cout, 3, downsample=True)
+        self.skip = ConvLayer(cin, cout, 1, downsample=True, activate=False)
+
+    def forward(self, x):
+        return (self.conv2(self.conv1(x)) + self.skip(x)) / math.sqrt(2)
 
 
 class PixelNorm(nn.Module):
@@ -281,3 +302,33 @@ class FullGenerator(nn.Module):
         # encoder features as noise: each twice, deepest first, drop the first
         noise = [f for f in feats for _ in range(2)][::-1][1:]
         return self.generator(latent, noise)
+
+
+class Discriminator(nn.Module):
+    """gpen_model.py:692-750 as the JAX package computes it
+    (s2v_tpu/models/gpen.py Discriminator): the minibatch-stddev channel is
+    the population standard deviation over the whole batch, averaged over
+    C*H*W (the reference uses groups of 4). Key layout as the reference's
+    (``convs.N.conv1/conv2/skip``, ``final_conv``, ``final_linear.0/1``, Blur
+    ``kernel`` buffers), so a GPEN discriminator checkpoint loads as it is."""
+
+    def __init__(self, size=512, channel_multiplier=2, narrow=1.0):
+        super().__init__()
+        ch = channels_table(narrow, channel_multiplier)
+        convs = [ConvLayer(3, ch[size], 1)]
+        cin = ch[size]
+        for i in range(int(math.log2(size)), 2, -1):
+            convs.append(ResBlock(cin, ch[2 ** (i - 1)]))
+            cin = ch[2 ** (i - 1)]
+        self.convs = nn.Sequential(*convs)
+        self.final_conv = ConvLayer(cin + 1, ch[4], 3)
+        self.final_linear = nn.Sequential(
+            EqualLinear(ch[4] * 4 * 4, ch[4], activation="fused_lrelu"),
+            EqualLinear(ch[4], 1))
+
+    def forward(self, x):
+        out = self.convs(x)
+        b, _, h, w = out.shape
+        std = torch.sqrt(out.var(0, unbiased=False) + 1e-8).mean()
+        out = torch.cat([out, std.expand(b, 1, h, w).to(out.dtype)], 1)
+        return self.final_linear(self.final_conv(out).flatten(1))

@@ -2,16 +2,21 @@
 
 ``KERNELS`` lists every kernel wrapper; each keeps a plain integer
 ``launches`` count that rises by one per kernel launch (never for the plain
-CPU version), so a run can show that it went through the kernels.
+CPU version), so a run can show that it went through the kernels:
+``fused_act`` K1, ``fused_act_bwd`` K2, ``upfirdn2d`` K3 (forward and
+backward launches alike).
 """
 
 from s2v_torch.ops.kernels.fused_act import (  # noqa: F401
     fused_bias_leaky_relu,
+    fused_bias_leaky_relu_bwd,
+    fused_bias_leaky_relu_bwd_plain,
     fused_bias_leaky_relu_plain,
 )
 from s2v_torch.ops.kernels.upfirdn2d import upfirdn2d, upfirdn2d_plain  # noqa: F401
 
-KERNELS = {"fused_act": fused_bias_leaky_relu, "upfirdn2d": upfirdn2d}
+KERNELS = {"fused_act": fused_bias_leaky_relu, "fused_act_bwd": fused_bias_leaky_relu_bwd,
+           "upfirdn2d": upfirdn2d}
 
 
 def reset_launch_counts() -> None:

@@ -3,17 +3,24 @@ a FIR of at most 4x4 taps, keep every ``down``-th sample, on both spatial
 axes of an NCHW tensor.
 
 The StyleGAN2 resampling primitive behind GPEN's Blur, Upsample and encoder
-downsample. On a CUDA tensor the wrapper launches the hand-written kernel
+downsample. On a CUDA tensor the wrapper launches the hand-written kernel K3
 ``s2v_torch/csrc/upfirdn2d.cu`` (the port of
 ``s2v_tpu/ops/pallas/upfirdn2d.py::upfirdn2d_pallas``), which covers every
 width with no fallback; on a CPU tensor it runs the plain PyTorch version
 below (stuff, pad, depthwise ``F.conv2d`` with the flipped FIR).
+
+``upfirdn2d`` is a ``torch.autograd.Function``. Its gradient is another
+upfirdn2d (GPEN's ``UpFirDn2dBackward``): the flipped FIR, ``up`` and
+``down`` swapped, per axis a leading pad of ``k - p0 - 1`` and a trailing pad
+that gives back the input's size. The backward calls the Function itself, so
+the double backward (R1) is K3 again with the original parameters. Backward
+launches count on K3's counter.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -22,36 +29,43 @@ import torch.nn.functional as F
 from s2v_torch.ops.kernels import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+Pad = Tuple[int, int]
 
 
-def out_size(size: int, k: int, up: int, down: int, pad: Tuple[int, int]) -> int:
+def out_size(size: int, k: int, up: int, down: int, pad: Pad) -> int:
     return (size * up + pad[0] + pad[1] - k) // down + 1
 
 
-def stuff_and_pad(x: torch.Tensor, up: int, pad: Tuple[int, int]) -> torch.Tensor:
-    """Insert (up-1) zeros after every sample and pad both spatial axes by
-    ``pad`` (negative entries crop)."""
+def grad_pad(size: int, out: int, k: int, up: int, down: int, pad: Pad) -> Pad:
+    """Per-axis pads of the upfirdn2d that is the gradient of one with these
+    parameters (input ``size``, output ``out``): its output is ``size``."""
+    return k - pad[0] - 1, size * up - out * down + pad[0] - up + 1
+
+
+def stuff_and_pad(x: torch.Tensor, up: int, pad: Pad,
+                  pad_x: Optional[Pad] = None) -> torch.Tensor:
+    """Insert (up-1) zeros after every sample and pad the rows by ``pad`` and
+    the columns by ``pad_x`` (``pad`` when None); negative entries crop."""
     b, c, h, w = x.shape
     if up > 1:
         z = x.new_zeros(b, c, h, up, w, up)
         z[:, :, :, 0, :, 0] = x
         x = z.view(b, c, h * up, w * up)
-    p0, p1 = pad
-    x = F.pad(x, [max(p0, 0), max(p1, 0), max(p0, 0), max(p1, 0)])
-    if p0 < 0 or p1 < 0:
-        s0, s1 = max(-p0, 0), max(-p1, 0)
-        x = x[:, :, s0:x.shape[2] - s1, s0:x.shape[3] - s1]
-    return x
+    (y0, y1), (x0, x1) = pad, pad if pad_x is None else pad_x
+    x = F.pad(x, [max(x0, 0), max(x1, 0), max(y0, 0), max(y1, 0)])
+    return x[:, :, max(-y0, 0):x.shape[2] - max(-y1, 0),
+             max(-x0, 0):x.shape[3] - max(-x1, 0)]
 
 
 def upfirdn2d_plain(x: torch.Tensor, kernel, up: int = 1, down: int = 1,
-                    pad: Tuple[int, int] = (0, 0)) -> torch.Tensor:
-    """Plain PyTorch version: stuff, pad, then a depthwise correlation with
-    the flipped FIR (a convolution with ``kernel``), stride ``down``."""
+                    pad: Pad = (0, 0), pad_x: Optional[Pad] = None) -> torch.Tensor:
+    """Plain PyTorch version: stuff, pad (``pad`` on the rows, ``pad_x`` on
+    the columns, ``pad`` on both when None), then a depthwise correlation
+    with the flipped FIR (a convolution with ``kernel``), stride ``down``."""
     c = x.shape[1]
     k = torch.as_tensor(np.asarray(kernel, np.float32), device=x.device)
     w = torch.flip(k, (0, 1)).to(x.dtype)[None, None].repeat(c, 1, 1, 1)
-    return F.conv2d(stuff_and_pad(x, up, pad), w, stride=down, groups=c)
+    return F.conv2d(stuff_and_pad(x, up, pad, pad_x), w, stride=down, groups=c)
 
 
 _kernel = None
@@ -70,12 +84,14 @@ def _launcher():
     return _kernel
 
 
-def upfirdn2d(x: torch.Tensor, kernel, up: int = 1, down: int = 1,
-              pad: Tuple[int, int] = (0, 0)) -> torch.Tensor:
-    """x: [B, C, H, W] f32 or bf16; kernel: [kh, kw] FIR (numpy or list),
-    kh, kw <= 4. Accumulates in f32; returns x's dtype."""
+def upfirdn2d_fwd(x: torch.Tensor, kernel, up: int, down: int, pad_y: Pad,
+                  pad_x: Pad) -> torch.Tensor:
+    """K3 (no autograd) with its own pads per axis: x [B, C, H, W] f32 or
+    bf16; kernel [kh, kw] FIR, kh, kw <= 4. Accumulates in f32; returns x's
+    dtype."""
     if x.device.type == "cpu":
-        return upfirdn2d_plain(x, kernel, up, down, pad)
+        with torch.no_grad():  # records no graph, as the kernel records none
+            return upfirdn2d_plain(x, kernel, up, down, pad_y, pad_x)
     if x.device.type != "cuda":
         raise ValueError(f"upfirdn2d: no kernel for {x.device}")
     if x.dtype not in _DTYPES:
@@ -86,24 +102,52 @@ def upfirdn2d(x: torch.Tensor, kernel, up: int = 1, down: int = 1,
                          f"FIR at most 4x4, got {k.shape}")
     if up < 1 or down < 1:
         raise ValueError(f"upfirdn2d: up={up}, down={down} must be >= 1")
-    if torch.is_grad_enabled() and x.requires_grad:
-        raise NotImplementedError("upfirdn2d: no backward kernel")
     b, c, h, w = x.shape
     kh, kw = k.shape
-    oh = out_size(h, kh, up, down, pad)
-    ow = out_size(w, kw, up, down, pad)
+    oh = out_size(h, kh, up, down, pad_y)
+    ow = out_size(w, kw, up, down, pad_x)
     if oh < 1 or ow < 1:
         raise ValueError(f"upfirdn2d: empty output {oh}x{ow}")
     x = x.contiguous()
     out = torch.empty((b, c, oh, ow), dtype=x.dtype, device=x.device)
     taps = (ctypes.c_float * k.size)(*k.ravel().tolist())
     rc = _launcher()(x.data_ptr(), out.data_ptr(), b * c, h, w, oh, ow, up,
-                     down, pad[0], pad[0], kh, kw, taps, _DTYPES[x.dtype],
+                     down, pad_y[0], pad_x[0], kh, kw, taps, _DTYPES[x.dtype],
                      torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"upfirdn2d: CUDA launch error {rc}")
     upfirdn2d.launches += 1
     return out
+
+
+class UpFirDn2d(torch.autograd.Function):
+    """K3 forward; the backward is this Function again with the gradient's
+    parameters, so every order of derivative runs K3 (and none runs on a
+    missing gradient)."""
+
+    @staticmethod
+    def forward(ctx, x, kernel, up, down, pad_y, pad_x):
+        out = upfirdn2d_fwd(x, kernel, up, down, pad_y, pad_x)
+        kh, kw = kernel.shape
+        ctx.grad_args = (np.ascontiguousarray(kernel[::-1, ::-1]), down, up,
+                         grad_pad(x.shape[2], out.shape[2], kh, up, down, pad_y),
+                         grad_pad(x.shape[3], out.shape[3], kw, up, down, pad_x))
+        ctx.set_materialize_grads(False)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        dx = None if g is None else UpFirDn2d.apply(g, *ctx.grad_args)
+        return dx, None, None, None, None, None
+
+
+def upfirdn2d(x: torch.Tensor, kernel, up: int = 1, down: int = 1,
+              pad: Pad = (0, 0)) -> torch.Tensor:
+    """x: [B, C, H, W] f32 or bf16 (any float dtype on the CPU); kernel:
+    [kh, kw] FIR (numpy or list), kh, kw <= 4; ``pad`` on both axes.
+    Differentiable to any order in x."""
+    k = np.asarray(kernel, np.float32)
+    return UpFirDn2d.apply(x, k, up, down, tuple(pad), tuple(pad))
 
 
 upfirdn2d.launches = 0

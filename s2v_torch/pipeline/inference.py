@@ -168,12 +168,14 @@ class LipSyncPipeline:
         batch = cfg.infer.lnet_batch_size
         out = []
         for start in range(0, n_chunks, batch):
-            # mel chunk i drives frame _frame_index(i) (inference.py datagen)
+            # output i takes frame _frame_index(i) and, as the JAX package
+            # does (s2v_tpu/pipeline/inference.py:779-782), the mel chunk at
+            # that same index: past the clip's end the audio walks back with
+            # the frames (a reference quirk the port keeps)
             idxs = [_frame_index(i, n_frames, cfg.infer.static)
                     for i in range(start, min(start + batch, n_chunks))]
             ix = torch.as_tensor(idxs, device=self.device)
-            pasted = self._step6(full[ix], boxes_dev[ix], refs[ix],
-                                 chunks[start:start + len(idxs)][:, None])
+            pasted = self._step6(full[ix], boxes_dev[ix], refs[ix], chunks[ix][:, None])
             pasted = pasted.permute(0, 2, 3, 1)  # NHWC uint8
             if self.models.final_enhancer is not None:
                 pasted = self.models.final_enhancer(

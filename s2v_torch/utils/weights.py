@@ -217,6 +217,36 @@ def gpen_from_jax(variables) -> StateDict:
     return sd
 
 
+def _gpen_convlayer(d, prefix: str, sd: StateDict, downsample: bool) -> None:
+    """JAX ConvLayer {conv: {weight}[, act_bias]} -> the reference's
+    Sequential ``[Blur,] EqualConv2d[, FusedLeakyReLU]``."""
+    i = 0
+    if downsample:
+        sd[f"{prefix}.0.kernel"] = _t(make_kernel(BLUR_TAPS))
+        i = 1
+    _conv(d["conv"], f"{prefix}.{i}", sd)
+    if "act_bias" in d:
+        sd[f"{prefix}.{i + 1}.bias"] = _t(d["act_bias"])
+
+
+def gpen_disc_from_jax(variables) -> StateDict:
+    """s2v_tpu GPEN Discriminator variables -> Discriminator state_dict
+    (reference key layout, blur FIR buffers included)."""
+    p = variables["params"]
+    sd: StateDict = {}
+    _gpen_convlayer(p["conv0"], "convs.0", sd, downsample=False)
+    n_res = sum(1 for k in p if k.startswith("res"))
+    for i in range(n_res):
+        r, pre = p[f"res{i}"], f"convs.{i + 1}"
+        _gpen_convlayer(r["conv1"], f"{pre}.conv1", sd, downsample=False)
+        _gpen_convlayer(r["conv2"], f"{pre}.conv2", sd, downsample=True)
+        _gpen_convlayer(r["skip"], f"{pre}.skip", sd, downsample=True)
+    _gpen_convlayer(p["final_conv"], "final_conv", sd, downsample=False)
+    _linear(p["final_linear0"], "final_linear.0", sd)
+    _linear(p["final_linear1"], "final_linear.1", sd)
+    return sd
+
+
 def _parse_convlayer(p, s, prefix: str, sd: StateDict) -> None:
     _conv(p["conv2d"], f"{prefix}.conv2d", sd)
     if "norm" in p:

@@ -9,14 +9,19 @@ runs on a machine that has only the port's dependencies:
 (``--noconftest`` skips tests/conftest.py, which sets up JAX.) Tolerances:
 f32 1e-5 absolute (same arithmetic, f32 accumulation in both); bf16 1e-2 of
 the output's largest magnitude (the kernels round once, the plain versions
-after every operation).
+after every operation). Gradients (backward and double backward through the
+autograd Functions, against PyTorch's autograd of the plain versions on the
+card): f32 1e-4 and bf16 2e-2 of the largest magnitude where it exceeds 1
+(second-order gradients are sums over many elements; bf16 rounds twice more
+on the plain side).
 """
 
 import numpy as np
 import pytest
 import torch
 
-from s2v_torch.ops.kernels import (fused_bias_leaky_relu, fused_bias_leaky_relu_plain,
+from s2v_torch.ops.kernels import (fused_bias_leaky_relu, fused_bias_leaky_relu_bwd,
+                                   fused_bias_leaky_relu_bwd_plain, fused_bias_leaky_relu_plain,
                                    launch_counts, upfirdn2d, upfirdn2d_plain)
 
 ATOL = 1e-5
@@ -41,8 +46,8 @@ def blur_kernel(taps, up=1):
     return k / k.sum() * up ** 2
 
 
-def tolerance(dtype, want):
-    return ATOL if dtype == torch.float32 else 1e-2 * want.abs().max().item()
+def tolerance(dtype, want, bf16=1e-2):
+    return ATOL if dtype == torch.float32 else bf16 * want.abs().max().item()
 
 
 @pytest.fixture
@@ -96,5 +101,100 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(card):
         fused_bias_leaky_relu(x, torch.zeros(3, device=card))
     with pytest.raises(ValueError):
         upfirdn2d(x, np.ones((5, 5), np.float32))
-    with pytest.raises(NotImplementedError):
-        upfirdn2d(x.requires_grad_(), blur_kernel([1, 3, 3, 1]))
+    with pytest.raises(ValueError):
+        fused_bias_leaky_relu_bwd(x, x[:, :, :4])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_bias", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 32, 64, 64), (3, 7, 5, 3), (4, 512)])
+def test_fused_act_bwd_kernel_matches_plain(card, dtype, shape, with_bias):
+    g = torch.Generator(device=card).manual_seed(1)
+    grad = torch.randn(shape, generator=g, device=card).to(dtype)
+    out = torch.randn(shape, generator=g, device=card).to(dtype)
+    b = torch.randn(shape[1], generator=g, device=card) if with_bias else None
+    before = launch_counts()["fused_act_bwd"]
+    got = fused_bias_leaky_relu_bwd(grad, out, b).float()
+    assert launch_counts()["fused_act_bwd"] == before + 1
+    want = fused_bias_leaky_relu_bwd_plain(grad, out, b).float()
+    torch.cuda.synchronize()
+    assert got.shape == want.shape
+    assert (got - want).abs().max().item() <= tolerance(dtype, want)
+
+
+def _first_and_second_grads(fn, inputs, w, loss=lambda out, w: (out * w).sum()):
+    """The gradients of ``loss(fn(*inputs), w)`` with create_graph, then the
+    gradients of the sum of their squares, all with respect to ``inputs``."""
+    first = torch.autograd.grad(loss(fn(*inputs), w), inputs, create_graph=True)
+    second = torch.autograd.grad(sum(f.float().square().sum() for f in first), inputs,
+                                 allow_unused=True)
+    second = [torch.zeros_like(i) if s is None else s for i, s in zip(inputs, second)]
+    return [t.float() for t in (*first, *second)]
+
+
+def _grad_tolerance(dtype, want):
+    scale = max(1.0, want.abs().max().item())
+    return (1e-4 if dtype == torch.float32 else 2e-2) * scale
+
+
+def _scaled(act, x, b, s):
+    """act(x, b) * s[c]: the incoming gradient of the activation depends on
+    s, so the double backward runs K2 on the backward (with b: the gradient
+    of dbias) and on the forward (its output reaches s's gradient), as R1
+    does. One layer, so the kernel and the plain version see the same signs
+    (a second layer's input would carry the first's bf16 rounding across
+    zero and flip its slope)."""
+    return act(x, b) * s.view(1, -1, *([1] * (x.dim() - 2))).to(x.dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 32, 16, 16), (4, 64)])
+def test_fused_act_function_backward_and_double_backward(card, dtype, shape):
+    g = torch.Generator(device=card).manual_seed(2)
+    x = torch.randn(shape, generator=g, device=card).to(dtype).requires_grad_()
+    # a bias the working dtype holds exactly: the plain version rounds it to
+    # that dtype before the add, and an x + b that this rounding carries
+    # across zero would flip the slope of one element
+    b = torch.randn(shape[1], generator=g, device=card).to(dtype).float().requires_grad_()
+    s = torch.randn(shape[1], generator=g, device=card).requires_grad_()
+    w = torch.randn(shape, generator=g, device=card).to(dtype)
+    before = launch_counts()
+    got = _first_and_second_grads(lambda *a: _scaled(fused_bias_leaky_relu, *a), (x, b, s), w)
+    after = launch_counts()
+    assert after["fused_act"] == before["fused_act"] + 1
+    # the backward, its double backward, the forward's backward again
+    assert after["fused_act_bwd"] == before["fused_act_bwd"] + 3
+    want = _first_and_second_grads(lambda *a: _scaled(fused_bias_leaky_relu_plain, *a),
+                                   (x, b, s), w)
+    torch.cuda.synchronize()
+    for a, ref in zip(got, want):
+        assert a.shape == ref.shape
+        assert (a - ref).abs().max().item() <= _grad_tolerance(dtype, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("up,down,pad,taps", CASES)
+def test_upfirdn2d_function_backward_and_double_backward(card, dtype, up, down, pad, taps):
+    g = torch.Generator(device=card).manual_seed(4)
+    x = torch.randn(2, 8, 33, 47, generator=g, device=card).to(dtype).requires_grad_()
+    k = blur_kernel(taps, up)
+    w = torch.randn(upfirdn2d_plain(x, k, up, down, pad).shape, generator=g,
+                    device=card).to(dtype)
+
+    def half_square(out, w):  # the first gradient depends on x again
+        return (out.float().square() * w).sum() / 2
+
+    before = launch_counts()["upfirdn2d"]
+    got = _first_and_second_grads(lambda a: upfirdn2d(a, k, up, down, pad), (x,), w,
+                                  half_square)
+    # forward, backward, the backward's backward, the forward's backward again
+    assert launch_counts()["upfirdn2d"] == before + 4
+    want = _first_and_second_grads(lambda a: upfirdn2d_plain(a, k, up, down, pad), (x,), w,
+                                   half_square)
+    torch.cuda.synchronize()
+    for a, ref in zip(got, want):
+        assert a.shape == ref.shape
+        assert (a - ref).abs().max().item() <= _grad_tolerance(dtype, ref)

@@ -10,21 +10,32 @@ to the output's scale where it exceeds 1 (f32, conv summation order).
 
 The round-trip tests check the converters the other way: the port's
 state_dict through s2v_tpu.utils.weights.convert_* gives back the flax tree.
+The GPEN Discriminator has no converter in s2v_tpu, so it is held by output
+and gradient parity instead.
+
+Gradient parity: the parameter gradients of a fixed random projection of the
+output (G and D, through the port's autograd Functions) against jax.grad;
+the JAX gradient tree goes through the same ``*_from_jax`` (pure layout).
+Tolerance per parameter: 1e-4 of that parameter's largest gradient
+(measured worst: 2e-5, f32 summation order through the backward).
 """
 
 import numpy as np
+import pytest
 import torch
 from flax import traverse_util
 
 import jax
 
 from s2v_torch.models.enet import ENet as TENet
+from s2v_torch.models.gpen import ConvLayer as TConvLayer
+from s2v_torch.models.gpen import Discriminator as TDisc
 from s2v_torch.models.gpen import FullGenerator as TGPEN
 from s2v_torch.models.parsenet import ParseNet as TParseNet
 from s2v_torch.models.rrdbnet import RRDBNet as TRRDBNet
 from s2v_torch.utils import weights as TW
 from s2v_tpu.models import ENet
-from s2v_tpu.models.gpen import FullGenerator
+from s2v_tpu.models.gpen import ConvLayer, Discriminator, FullGenerator
 from s2v_tpu.models.parsenet import ParseNet
 from s2v_tpu.models.rrdbnet import RRDBNet
 from s2v_tpu.utils import weights as JW
@@ -33,6 +44,7 @@ from torch_parity import random_variables
 ENET_KW = dict(lnet_res_blocks=2, channel_multiplier=0.25, narrow=0.25,
                lnet_base_nc=8, lnet_max_nc=32)
 GPEN_KW = dict(size=64, narrow=0.25, channel_multiplier=0.5, style_dim=64, n_mlp=2)
+DISC_KW = dict(size=64, narrow=0.25, channel_multiplier=0.5)
 PARSE_KW = dict(base_ch=16, max_ch=32, min_ch=8, res_depth=2)
 RRDB_KW = dict(scale=2, num_feat=16, num_block=2, num_grow_ch=8)
 
@@ -168,3 +180,77 @@ def test_gpen_state_dict_names_match_reference_layout():
               "generator.convs.0.conv.blur.kernel", "generator.to_rgbs.0.upsample.kernel",
               "generator.to_rgb1.bias"):
         assert k in keys, k
+
+
+def test_gpen_discriminator_matches_jax():
+    rng = np.random.RandomState(6)
+    model = Discriminator(**DISC_KW)
+    v = random_variables(model, (1, 64, 64, 3), seed=6, equalized=True)
+    x = rng.uniform(-1, 1, (3, 64, 64, 3)).astype(np.float32)
+    want = jax.jit(model.apply)(v, x)
+    port = load(TDisc(**DISC_KW), TW.gpen_disc_from_jax(v))
+    with torch.no_grad():
+        got = port(to_nchw(x))
+    assert got.shape == (3, 1)
+    close(got.numpy(), want)
+
+
+def test_gpen_discriminator_state_dict_names_match_reference_layout():
+    keys = set(TDisc(**DISC_KW).state_dict())
+    for k in ("convs.0.0.weight", "convs.0.1.bias", "convs.1.conv1.0.weight",
+              "convs.1.conv1.1.bias", "convs.1.conv2.0.kernel", "convs.1.conv2.1.weight",
+              "convs.1.conv2.2.bias", "convs.1.skip.0.kernel", "convs.1.skip.1.weight",
+              "final_conv.0.weight", "final_conv.1.bias", "final_linear.0.weight",
+              "final_linear.0.bias", "final_linear.1.weight", "final_linear.1.bias"):
+        assert k in keys, k
+    assert "convs.1.skip.1.bias" not in keys  # skip: no bias, no activation
+
+
+def assert_grads_match(port, grads_sd):
+    for name, p in port.named_parameters():
+        want = grads_sd[name].numpy()
+        got = p.grad.numpy()
+        assert got.shape == want.shape, name
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-4 * np.abs(want).max(),
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("which", ["generator", "discriminator"])
+def test_gpen_parameter_gradients_match_jax(which):
+    rng = np.random.RandomState(7)
+    if which == "generator":
+        model, tcls, kw, conv = FullGenerator(**GPEN_KW), TGPEN, GPEN_KW, TW.gpen_from_jax
+    else:
+        model, tcls, kw, conv = Discriminator(**DISC_KW), TDisc, DISC_KW, TW.gpen_disc_from_jax
+    v = random_variables(model, (1, 64, 64, 3), seed=7, equalized=True)
+    x = rng.uniform(-1, 1, (2, 64, 64, 3)).astype(np.float32)
+    w = rng.randn(*jax.eval_shape(model.apply, v, x).shape).astype(np.float32)
+
+    def loss(params):
+        return (model.apply({"params": params}, x) * w).sum()
+
+    grads = jax.jit(jax.grad(loss))(v["params"])
+    want = conv({"params": jax.tree_util.tree_map(np.asarray, grads)})
+    port = tcls(**kw)
+    port.load_state_dict(conv(v))
+    wt = torch.from_numpy(np.ascontiguousarray(np.moveaxis(w, -1, 1)))
+    (port(to_nchw(x)) * wt).sum().backward()
+    assert_grads_match(port, want)
+
+
+@pytest.mark.parametrize("downsample,activate", [(False, True), (True, True), (True, False)])
+def test_gpen_convlayer_variants_match_jax(downsample, activate):
+    """The ConvLayer variants the GPEN models use: blur-downsample or not,
+    then FusedLeakyReLU, or (ResBlock's skip) no bias and no activation."""
+    rng = np.random.RandomState(8)
+    model = ConvLayer(6, 3, downsample=downsample, use_bias=activate, activate=activate)
+    v = random_variables(model, (1, 16, 16, 4), seed=8, equalized=True)
+    x = rng.randn(2, 16, 16, 4).astype(np.float32)
+    want = jax.jit(model.apply)(v, x)
+    sd = {}
+    TW._gpen_convlayer(v["params"], "", sd, downsample)
+    port = load(TConvLayer(4, 6, 3, downsample=downsample, activate=activate),
+                {k[1:]: t for k, t in sd.items()})
+    with torch.no_grad():
+        got = port(to_nchw(x))
+    close(got.numpy().transpose(0, 2, 3, 1), want)

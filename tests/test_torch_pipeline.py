@@ -4,6 +4,10 @@
 the same slim weights, the same injected frames, boxes and landmarks and the
 same mel, in f32 on the CPU.
 
+A second case gives the clip fewer frames than mel chunks, so frames and
+mel chunks ping-pong past the clip's end (output i takes frame and chunk
+``frame_index(i)``, as the JAX package does).
+
 Tolerance on the uint8 output: both sides compute in f32 and truncate to
 uint8, so a subpixel whose value sits on an integer boundary may differ by
 one gray level (measured: 0.006% of subpixels, none by more than 1). The
@@ -45,21 +49,24 @@ PARSE_KW = dict(base_ch=16, max_ch=32, min_ch=8, res_depth=2)
 RRDB_KW = dict(scale=2, num_feat=16, num_block=2, num_grow_ch=8)
 
 
-def slice_inputs():
+def slice_inputs(n=N, seconds=0.35):
     rng = np.random.RandomState(7)
-    frames = (rng.rand(N, H, W, 3) * 255).astype(np.uint8)
-    stab = (rng.rand(N, 256, 256, 3) * 255).astype(np.uint8)
+    frames = (rng.rand(n, H, W, 3) * 255).astype(np.uint8)
+    stab = (rng.rand(n, 256, 256, 3) * 255).astype(np.uint8)
     cx, cy, s = W / 2, H / 2, min(H, W) * 0.3
-    boxes = np.tile(np.asarray([cx - s, cy - s, cx + s, cy + s], np.float32), (N, 1))
-    t = np.arange(int(0.35 * 16000)) / 16000.0
-    wav = (0.5 * np.sin(2 * np.pi * 200 * t)).astype(np.float32)
+    boxes = np.tile(np.asarray([cx - s, cy - s, cx + s, cy + s], np.float32), (n, 1))
+    t = np.arange(int(seconds * 16000)) / 16000.0
+    wav = (0.5 * np.sin(2 * np.pi * 200 * t)
+           * (1 + 0.5 * np.sin(2 * np.pi * 3 * t))).astype(np.float32)
     mel = np.array(melspectrogram(jnp.asarray(wav)))
     return dict(stab=stab, frames=frames, mel=mel, coords=(8, 88, 10, 100),
-                boxes=boxes, lms_full=synthetic_landmarks(N, H, W),
-                lms_stab=synthetic_landmarks(N, 256, 256))
+                boxes=boxes, lms_full=synthetic_landmarks(n, H, W),
+                lms_stab=synthetic_landmarks(n, 256, 256))
 
 
-def test_synthesize_with_final_stage_matches_jax():
+def synthesize_both(x):
+    """The JAX package's and the port's synthesize with the final hook, on
+    the same slim weights and inputs; returns (jax uint8, port uint8)."""
     v = {
         "enet": random_variables(ENet(**ENET_KW), (1, 80, 16, 1), (1, 96, 96, 6),
                                  (1, 96, 96, 3), seed=11),
@@ -68,7 +75,6 @@ def test_synthesize_with_final_stage_matches_jax():
         "parsenet": random_variables(ParseNet(**PARSE_KW), (1, PARSE, PARSE, 3), seed=13),
         "srmodel": random_variables(RRDBNet(**RRDB_KW), (1, 24, 24, 3), seed=14),
     }
-    x = slice_inputs()
 
     # JAX package: the cli's final hook over FaceEnhancer(use_sr=True)
     jcfg = override(PipelineConfig(), {"model.dtype": "float32",
@@ -109,12 +115,44 @@ def test_synthesize_with_final_stage_matches_jax():
     got = tpipe.synthesize(x["stab"], torch.from_numpy(x["mel"].copy()), x["frames"], x["coords"],
                            25.0, boxes_full=x["boxes"], lms_full=x["lms_full"],
                            lms_stab=x["lms_stab"])
+    return want, got
 
-    assert want.shape == (6, 2 * H, 2 * W, 3)
+
+def assert_close_frames(got, want):
     assert got.shape == want.shape and got.dtype == np.uint8
     d = np.abs(got.astype(np.int32) - want.astype(np.int32))
     assert (d > 1).mean() <= 1e-3 and d.mean() < 0.01, (d.max(), (d > 1).mean(), d.mean())
     assert want.std() > 1.0  # not a constant frame
+
+
+def test_synthesize_with_final_stage_matches_jax():
+    want, got = synthesize_both(slice_inputs())
+    assert want.shape == (6, 2 * H, 2 * W, 3)
+    assert_close_frames(got, want)
+
+
+def test_synthesize_fewer_frames_than_chunks_matches_jax():
+    """3 frames, 0.4 s of speech (7 mel chunks): outputs 3..6 reuse frames
+    and mel chunks by the ping-pong index."""
+    want, got = synthesize_both(slice_inputs(n=3, seconds=0.4))
+    assert want.shape == (7, 2 * H, 2 * W, 3)
+    assert_close_frames(got, want)
+    # frame_index(i) for i = 0..6 over 3 frames is 0 1 2 1 0 1 2, and the mel
+    # chunk follows it: outputs 1 and 3 (one batch of 4) are the same
+    np.testing.assert_array_equal(got[1], got[3])
+
+
+def test_synthesize_one_frame_clip_matches_jax():
+    """A one-frame clip (like ``infer.static``) has frame_index(i) = 0 for
+    every output, so every output takes mel chunk 0 as well: the JAX package
+    lip-syncs no audio past the first chunk there, and the port keeps that
+    quirk. All 7 outputs are the same frame on both sides."""
+    want, got = synthesize_both(slice_inputs(n=1, seconds=0.4))
+    assert want.shape == (7, 2 * H, 2 * W, 3)
+    assert_close_frames(got, want)
+    for i in range(1, 7):
+        np.testing.assert_array_equal(got[i], got[0])
+        np.testing.assert_array_equal(want[i], want[0])
 
 
 def test_entry_points_refuse_without_card_unless_cpu_is_asked():
