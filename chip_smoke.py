@@ -1,20 +1,28 @@
 """Quickest proof that the s2v_torch port runs on an NVIDIA Hopper card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --kernels-only [--package DIR]
+
+The second form runs phases 1 and 2 alone, with the s2v_torch package
+found in DIR when given (say a ``git archive`` of another commit), so two
+commits' kernels can be timed on one card in one call.
 
 Phases, each printed as it ends; any failure exits nonzero without the
 result line:
 
 1. build: compile every CUDA kernel of the port from s2v_torch/csrc (one
    nvcc per source, all started together) and print the build seconds and
-   each kernel's register use.
+   each kernel's registers, shared memory per block and spills.
 2. kernels: call each kernel's wrapper at the shapes GPEN-BFR-2048 gives it
-   on the inference path (plus a down=2 and a negative-pad upfirdn2d case)
+   on the inference path (from the 9x9 blur after its first transposed conv
+   to the 2049x2049 one after its last, plus a down=2 and a negative-pad
+   upfirdn2d case)
    and at the shapes GPEN-BFR-512 training gives it (K1 and K2 at the last
    StyledConv's [4, 128, 512, 512], K2 with and without b; K3's forward and
    backward configurations) and hold it against its plain PyTorch version,
    in f32 and bf16; print the error against its tolerance, the kernel, plain
-   and library times (CUDA events) and the least time the card could take.
+   and library times (CUDA events), the least time the card could take and
+   the kernel's share of it. Speed fails nothing; a disagreement does.
 3. reference: the slice at slim widths on the card (kernels) and on the CPU
    (plain versions), f32, must agree on the output frames.
 4. slice: the full-width models (ENet/LNet defaults, GPEN-BFR-2048,
@@ -58,6 +66,7 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_FLOP_PER_S = 67e12    # H100 SXM, outside the tensor cores
+SPIN_CYCLES = 40_000_000  # ~20 ms at the H100's clocks
 FAILURES = []
 
 
@@ -95,11 +104,16 @@ def synthetic_landmarks(n, h, w, rng):
 
 
 def event_ms(torch, fn, iters=10, warmup=2):
+    """Device ms per call of ``fn``. The calls queue behind a spin kernel of
+    some 20 ms, so the start event runs only once they are all enqueued: the
+    events time the device, not the host's enqueue (a wrapper's Python
+    costs tens of microseconds, more than a small layer's kernel)."""
     for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    torch.cuda._sleep(SPIN_CYCLES)
     start.record()
     for _ in range(iters):
         fn()
@@ -122,11 +136,42 @@ def phase_build():
     print(f"build: {secs:.1f} s (nvcc, sm_90a, both sources in parallel: K1 and K2 in "
           "fused_act.cu, K3 in upfirdn2d.cu)")
     for name in ("fused_act", "upfirdn2d"):
-        log = _build.library_path(name).with_suffix(".log")
-        for line in log.read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas {name}: {line.strip()}")
+        for fn, use in ptxas_usage(_build.library_path(name).with_suffix(".log")).items():
+            print(f"  ptxas {name}: {fn}: {use['registers']} registers, {use['smem']} bytes "
+                  f"shared memory per block, {use['stack']} bytes stack, {use['spill']} bytes "
+                  "spilled")
     return secs
+
+
+def ptxas_usage(log):
+    """Registers, static shared memory per block, stack frame and spill bytes
+    of every kernel in an nvcc -Xptxas -v log, by demangled name."""
+    import re
+
+    usage, fn = {}, None
+    for line in log.read_text().splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            fn = m.group(1)
+            usage[fn] = dict(registers=0, smem=0, stack=0, spill=0)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores", line)
+        if m and fn:
+            usage[fn]["stack"], usage[fn]["spill"] = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn:
+            usage[fn]["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            usage[fn]["smem"] = int(sm.group(1)) if sm else 0
+    names = list(usage)
+    try:
+        names = subprocess.run(["c++filt"], input="\n".join(names), capture_output=True,
+                               text=True, check=True).stdout.split("\n")[:len(names)]
+    except (OSError, subprocess.CalledProcessError):
+        pass
+    names = [n.replace("(anonymous namespace)::", "").split("(")[0].removeprefix("void ")
+             for n in names]
+    return dict(zip(names, usage.values()))
 
 
 def phase_kernels(torch):
@@ -171,7 +216,8 @@ def phase_kernels(torch):
           ((1, 16, 2048, 2048), 1, 1, (2, 2), blur),      # before a stride-2 encoder conv
           ((1, 3, 1024, 1024), 2, 1, (2, 1), blur * 4),   # ToRGB skip upsample
           ((1, 16, 2048, 2048), 1, 2, (1, 1), blur),      # StyleGAN2 downsample
-          ((1, 16, 1024, 1024), 1, 1, (-1, 2), blur)]     # negative pad crops
+          ((1, 16, 1024, 1024), 1, 1, (-1, 2), blur),     # negative pad crops
+          ((1, 512, 9, 9), 1, 1, (1, 1), blur * 4)]        # after the first transposed conv
     for shape, up, down, pad, fir in k3:
         for dtype in (torch.float32, torch.bfloat16):
             x = torch.randn(shape, generator=g, device=dev).to(dtype)
@@ -207,10 +253,12 @@ def phase_kernels(torch):
         if c["kernel"] == "fused_act_bwd":
             extra = " with b" if c["with_b"] else " no b"
         lib = "n/a" if c["library_ms"] is None else f"{c['library_ms']:.4f}"
+        c["bound_share"] = c["bound_ms"] / c["ms"]
         print(f"kernel {c['kernel']} {tuple(c['shape'])} {c['dtype']}{extra}: "
               f"max_abs_err {c['max_abs_err']:.3g} (tol {c['tol']:.3g}) "
               f"{'ok' if ok else 'FAIL'}; ms {c['ms']:.4f} plain {c['plain_ms']:.4f} "
-              f"library {lib} bound {c['bound_ms']:.4f} ({c['bound_by']})")
+              f"library {lib} bound {c['bound_ms']:.4f} ({c['bound_by']}), "
+              f"{100 * c['bound_share']:.0f}% of bound")
         if not ok:
             fail(f"{c['kernel']} {c['shape']} {c['dtype']} disagrees with its plain version")
     return cases
@@ -495,6 +543,12 @@ def profile_rows(prof, what, unprofiled_ms):
     rows = [e for e in prof.key_averages()
             if str(getattr(e, "device_type", "")).endswith("CUDA") and dev_us(e) > 0]
     busy_ms = sum(dev_us(e) for e in rows) / 1e3
+    # the port's kernels by their CUDA names (K1 fused_vec/fused_scalar, K2
+    # bwd_vec/bwd_scalar, K3 upfirdn2d_strips/upfirdn2d_direct)
+    ours = {name: sum(dev_us(e) for e in rows if any(f"::{k}<" in e.key for k in keys)) / 1e3
+            for name, keys in (("fused_act", ("fused_vec", "fused_scalar")),
+                               ("fused_act_bwd", ("bwd_vec", "bwd_scalar")),
+                               ("upfirdn2d", ("upfirdn2d_strips", "upfirdn2d_direct")))}
     rows.sort(key=dev_us, reverse=True)
     top = [dict(name=e.key[:90], calls=e.count, ms=dev_us(e) / 1e3) for e in rows[:15]]
     if busy_ms == 0:
@@ -505,7 +559,8 @@ def profile_rows(prof, what, unprofiled_ms):
               f"{unprofiled_ms:.1f} ms")
         for r in top[:10]:
             print(f"  {r['ms']:8.2f} ms {r['calls']:5d}x  {r['name']}")
-    return dict(busy_ms=busy_ms, busy_share=busy_ms / unprofiled_ms, top=top)
+        print("  the port's kernels: " + ", ".join(f"{k} {v:.2f} ms" for k, v in ours.items()))
+    return dict(busy_ms=busy_ms, busy_share=busy_ms / unprofiled_ms, top=top, kernel_ms=ours)
 
 
 def synthetic_faces(n, size, seed):
@@ -698,14 +753,24 @@ def profile_g_step(torch, state, g_step, batch, unprofiled_ms):
 
 
 def main():
+    import argparse
+
     import torch
 
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--kernels-only", action="store_true",
+                        help="build and check the kernels (phases 1 and 2), nothing else")
+    parser.add_argument("--package", type=Path,
+                        help="directory holding the s2v_torch package to use")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke runs only on the card",
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
-    import s2v_torch  # noqa: F401  (fails outside a checkout of the repo)
+    if args.package is not None:
+        sys.path.insert(0, str(args.package.resolve()))
+    import s2v_torch  # (fails outside a checkout of the repo)
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -715,10 +780,18 @@ def main():
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}; {card}", flush=True)
 
+    print(f"package {Path(s2v_torch.__file__).parent}")
+
     t_start = time.perf_counter()
     report = {"card": card, "build_s": phase_build()}
     cases = phase_kernels(torch)
     report["kernel_cases"] = cases
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    if args.kernels_only:
+        (out_dir / "chip_smoke_kernels.json").write_text(json.dumps(report, indent=1))
+        print(f"kernels only: {len(FAILURES)} failure(s)")
+        return 1 if FAILURES else 0
     report["reference"] = phase_reference(torch)
     launches, report["slice"] = phase_slice(torch, card)
     report["train_reference"] = phase_train_reference(torch)
@@ -745,9 +818,11 @@ def main():
             ms=c["ms"], plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
             bound_by=c["bound_by"], library_ms=c["library_ms"], shape=c["shape"],
             dtype=dtype))
+    # K3 also at GPEN-512 training's largest forward shape, in f32
+    t = next(c for c in cases if c["kernel"] == "upfirdn2d" and c.get("role") == "forward")
+    kernels[-1]["train_case"] = {k: t[k] for k in ("shape", "dtype", "pad", "ms", "plain_ms",
+                                                   "bound_ms", "library_ms")}
     report["kernels"] = kernels
-    out_dir = ROOT / "chiprun_out"
-    out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))
     print(f"total {report['seconds']:.1f} s")
     if FAILURES:

@@ -63,7 +63,9 @@ def upfirdn2d_plain(x: torch.Tensor, kernel, up: int = 1, down: int = 1,
     the columns, ``pad`` on both when None), then a depthwise correlation
     with the flipped FIR (a convolution with ``kernel``), stride ``down``."""
     c = x.shape[1]
-    k = torch.as_tensor(np.asarray(kernel, np.float32), device=x.device)
+    # a copy: a flipped 1x1 FIR keeps its negative strides through
+    # np.ascontiguousarray, and torch refuses those
+    k = torch.as_tensor(np.array(kernel, np.float32), device=x.device)
     w = torch.flip(k, (0, 1)).to(x.dtype)[None, None].repeat(c, 1, 1, 1)
     return F.conv2d(stuff_and_pad(x, up, pad, pad_x), w, stride=down, groups=c)
 

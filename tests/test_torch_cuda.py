@@ -23,11 +23,13 @@ import torch
 from s2v_torch.ops.kernels import (fused_bias_leaky_relu, fused_bias_leaky_relu_bwd,
                                    fused_bias_leaky_relu_bwd_plain, fused_bias_leaky_relu_plain,
                                    launch_counts, upfirdn2d, upfirdn2d_plain)
+from s2v_torch.ops.kernels.upfirdn2d import grad_pad, out_size, upfirdn2d_fwd
 
 ATOL = 1e-5
 
 # (up, down, pad, taps): the StyleGAN2 use sites of tests/test_pallas_ops.py,
-# the three GPEN-2048 configurations, a negative pad (a crop) and a mixed case
+# the three GPEN-2048 configurations, a negative pad (a crop), mixed cases,
+# a 1-tap and a 2-tap FIR, and a down=2 and an up=2 down=2 case with wide pads
 CASES = [
     (1, 1, (2, 1), [1, 3, 3, 1]),
     (2, 1, (2, 1), [1, 3, 3, 1]),
@@ -38,7 +40,19 @@ CASES = [
     (2, 1, (2, 1), [1, 3, 3, 1]),   # ToRGB skip upsample
     (1, 1, (-1, 2), [1, 3, 3, 1]),  # negative pad crops
     (2, 2, (0, -1), [1, 2, 1]),
+    (1, 1, (1, 0), [1]),
+    (2, 1, (0, 1), [1, 1]),
+    (1, 2, (2, 2), [1, 3, 3, 1]),
+    (2, 2, (2, 1), [1, 3, 3, 1]),
 ]
+
+# input shapes for the edges of K3's plan (a warp takes 128 output columns
+# and a chunk of up to 64 rows, 8 on planes this short; outputs under 40
+# columns take the one-thread-per-output kernel): GPEN-2048's width, a plane
+# of a few outputs, widths around 40, outputs one row past a chunk and one
+# column past a strip, GPEN-512 training's odd widths
+SHAPES = [(2, 16, 33, 2049), (1, 3, 1, 7), (1, 3, 40, 41), (1, 4, 66, 130), (1, 4, 67, 131),
+          (1, 2, 513, 513), (1, 2, 511, 511)]
 
 
 def blur_kernel(taps, up=1):
@@ -77,12 +91,38 @@ def test_fused_act_kernel_matches_plain(card, dtype, shape):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape", SHAPES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("up,down,pad,taps", CASES)
-def test_upfirdn2d_kernel_matches_plain(card, dtype, up, down, pad, taps):
+def test_upfirdn2d_kernel_matches_plain(card, dtype, up, down, pad, taps, shape):
     g = torch.Generator(device=card).manual_seed(0)
-    x = torch.randn(2, 16, 33, 2049, generator=g, device=card).to(dtype)
+    x = torch.randn(shape, generator=g, device=card).to(dtype)
     k = blur_kernel(taps, up)
+    before = launch_counts()["upfirdn2d"]
+    if min(out_size(n, len(taps), up, down, pad) for n in shape[2:]) < 1:
+        with pytest.raises(ValueError):  # an empty output launches nothing
+            upfirdn2d(x, k, up, down, pad)
+        assert launch_counts()["upfirdn2d"] == before
+        return
+    got = upfirdn2d(x, k, up, down, pad).float()
+    assert launch_counts()["upfirdn2d"] == before + 1
+    want = upfirdn2d_plain(x, k, up, down, pad).float()
+    torch.cuda.synchronize()
+    assert got.shape == want.shape
+    assert (got - want).abs().max().item() <= tolerance(dtype, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("up,down,pad,kh,kw", [(1, 1, (2, 1), 4, 4), (2, 1, (2, 1), 4, 3),
+                                               (1, 2, (1, 2), 3, 4), (2, 2, (1, 1), 3, 3)])
+def test_upfirdn2d_kernel_non_separable_fir_matches_plain(card, dtype, up, down, pad, kh, kw):
+    """A random FIR, which is no outer product, on outputs wide enough for
+    the strip kernel: K3 takes its direct path (every FIR of GPEN's, and of
+    CASES, factors into two 1-D FIRs, which the strip kernel needs)."""
+    g = torch.Generator(device=card).manual_seed(5)
+    x = torch.randn(2, 3, 37, 70, generator=g, device=card).to(dtype)
+    k = np.random.RandomState(kh * 4 + kw).randn(kh, kw).astype(np.float32)
     before = launch_counts()["upfirdn2d"]
     got = upfirdn2d(x, k, up, down, pad).float()
     assert launch_counts()["upfirdn2d"] == before + 1
@@ -90,6 +130,35 @@ def test_upfirdn2d_kernel_matches_plain(card, dtype, up, down, pad, taps):
     torch.cuda.synchronize()
     assert got.shape == want.shape
     assert (got - want).abs().max().item() <= tolerance(dtype, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("up,down,pad,taps", CASES)
+def test_upfirdn2d_fwd_per_axis_pads_matches_plain(card, dtype, up, down, pad, taps):
+    """Each axis with its own pads on an H != W input, as the backward runs
+    K3: a forward with pads that differ per axis, then its gradient's
+    configuration (the flipped FIR, up and down swapped, each axis's pads
+    from grad_pad), whose output has the forward input's size."""
+    g = torch.Generator(device=card).manual_seed(3)
+    k = blur_kernel(taps, up)
+    kf = np.ascontiguousarray(k[::-1, ::-1])
+    h, w = 37, 70
+    pad_x = (pad[1], pad[0] - 1)
+    oh, ow = out_size(h, k.shape[0], up, down, pad), out_size(w, k.shape[1], up, down, pad_x)
+    x = torch.randn(2, 8, h, w, generator=g, device=card).to(dtype)
+    grad = torch.randn(2, 8, oh, ow, generator=g, device=card).to(dtype)
+    gpy = grad_pad(h, oh, k.shape[0], up, down, pad)
+    gpx = grad_pad(w, ow, k.shape[1], up, down, pad_x)
+    for args, size in (((x, k, up, down, pad, pad_x), (oh, ow)),
+                       ((grad, kf, down, up, gpy, gpx), (h, w))):
+        before = launch_counts()["upfirdn2d"]
+        got = upfirdn2d_fwd(*args).float()
+        assert launch_counts()["upfirdn2d"] == before + 1
+        want = upfirdn2d_plain(*args).float()
+        torch.cuda.synchronize()
+        assert got.shape == want.shape == (2, 8, *size)
+        assert (got - want).abs().max().item() <= tolerance(dtype, want)
 
 
 @pytest.mark.cuda
