@@ -23,19 +23,38 @@ result line:
    in f32 and bf16; print the error against its tolerance, the kernel, plain
    and library times (CUDA events), the least time the card could take and
    the kernel's share of it. Speed fails nothing; a disagreement does.
-3. reference: the slice at slim widths on the card (kernels) and on the CPU
-   (plain versions), f32, must agree on the output frames.
-4. slice: the full-width models (ENet/LNet defaults, GPEN-BFR-2048,
-   ParseNet, RealESRNet x2) with random weights from a fixed seed run
-   ``melspectrogram`` -> ``LipSyncPipeline.synthesize`` with the final hook
-   on 8 synthetic 512x512 frames and 0.4 s of synthetic speech. The launch
-   counts are reset just before this run and read just after; each kernel
-   must have run, 38 and 27 times per frame (K2 not at all).
-5. train reference: one R1 d_step, one g_step and one plain d_step of
+3. reference: the Step 6 slice at slim widths on the card (kernels) and on
+   the CPU (plain versions), f32, must agree on the output frames.
+4. steps reference: Steps 1-3 (``extract_landmarks``, ``ffhq_crop``,
+   ``extract_coeffs``, ``stabilize``) on the card and on the CPU from the
+   same weights on three 192x160 frames, f32: S3FD and FAN at full width,
+   ReconNet and DNet slim. S3FD's maps and FAN's heatmaps on identical
+   inputs within 1e-4 of their scale; boxes and landmarks within 1e-2 px
+   where the top-2 margin of their score or heatmap exceeds 1e-4 (of the
+   heatmaps' scale), at least 90% of them; crops within one gray level;
+   coefficients within 1e-4 of their scale; stabilised frames as the slim
+   slice's.
+5. slice: the chained main path at full width, random weights from a fixed
+   seed: 8 synthetic 512x512 frames -> ``extract_landmarks`` (boxes kept)
+   -> ``ffhq_crop`` -> ``extract_landmarks`` on the crops ->
+   ``extract_coeffs`` -> ``stabilize`` -> ``melspectrogram`` (0.4 s of
+   synthetic speech) -> ``synthesize`` with the final hook, S3FD (VGG16),
+   FAN (2DFAN4), ReconNet (ResNet50), DNet, ENet/LNet, GPEN-BFR-2048,
+   ParseNet and RealESRNet x2 at their production widths. Random S3FD
+   weights find no face, so the face-class bias of its stride-4 head is
+   raised by 20 (every frame then has a box); where a step's geometry comes
+   from landmarks (the FFHQ crop, the 3DMM alignment, the reference faces,
+   the final stage) synthetic ones stand in, with a synthetic lm3d and a
+   zero expression. The launch counts are reset just before this run and
+   read just after; each kernel must have run, 38 and 27 times per frame
+   (K2 not at all). Per step: synchronised wall ms and, from one more run
+   with each step under its own torch.profiler session, device ms and the
+   top kernels.
+6. train reference: one R1 d_step, one g_step and one plain d_step of
    ``s2v_torch.train.gan.make_gan_trainer`` at slim widths on the card and
    on the CPU from the same weights and batch; metrics and every parameter
    gradient must agree.
-6. train: GPEN-BFR-512 (FullGenerator and Discriminator at full width,
+7. train: GPEN-BFR-512 (FullGenerator and Discriminator at full width,
    random weights from a fixed seed), batch 4 at 512^2 from
    ``face_batches`` over 8 synthetic faces, step pairs 0-16 (R1 at 0 and
    16), f32. The launch counts are reset just before and read just after;
@@ -48,11 +67,12 @@ first). The line before the last is one JSON object with every kernel's
 numbers, its launches summed over both main paths (inference slice and
 training) and split by path; the last is ``{"ok": true, "device": {...}}``. Details go to
 chiprun_out/chip_smoke.json. TF32 is off throughout (f32 convs and matmuls
-run in full f32).
+run in full f32; the pipeline keeps S3FD, FAN and ReconNet so regardless).
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import math
@@ -380,7 +400,9 @@ def full_models(torch):
                     srmodel=RRDBNet(scale=2, num_feat=32, num_block=23, num_grow_ch=32))
 
 
-def make_pipeline(models, in_size, dtype, parse_size, device, batch=16):
+def make_pipeline(models, in_size, dtype, parse_size, device, batch=16, steps=None):
+    """The Step 6 pipeline with the final hook; ``steps`` adds the Step 1-3
+    models (with the synthetic lm3d and a zero expression)."""
     from s2v_torch.pipeline.enhance import FaceEnhancer, final_enhancer_hook
     from s2v_torch.pipeline.inference import LipSyncPipeline, PipelineModels
     from s2v_torch.utils.config import InferenceConfig, ModelConfig, PipelineConfig
@@ -390,8 +412,34 @@ def make_pipeline(models, in_size, dtype, parse_size, device, batch=16):
     cfg = PipelineConfig(model=ModelConfig(dtype=dtype, reuse_detections=True),
                          infer=InferenceConfig(lnet_batch_size=batch))
     hook = final_enhancer_hook(final)
-    return LipSyncPipeline(cfg, PipelineModels(enet=models["enet"], final_enhancer=hook),
-                           device=device), hook
+    extra = {} if steps is None else dict(steps, lm3d=LM3D, expression=np.zeros(64, np.float32))
+    return LipSyncPipeline(cfg, PipelineModels(enet=models["enet"], final_enhancer=hook,
+                                               **extra), device=device), hook
+
+
+# a synthetic 5-point lm3d (the BFM file is not in the repo), as
+# tests/test_pipeline_e2e.py uses
+LM3D = np.asarray([[-0.3, 0.2, 0.1], [0.3, 0.2, 0.1], [0.0, 0.0, 0.3],
+                   [-0.2, -0.3, 0.1], [0.2, -0.3, 0.1]], np.float64)
+
+
+def steps_models(torch, slim, face_bias):
+    """S3FD and FAN (2DFAN4) at full width, ReconNet and DNet slim or at
+    full width, random weights from a fixed seed; the face-class bias of
+    S3FD's stride-4 head raised by ``face_bias`` so every frame has a box."""
+    from s2v_torch.models.dnet import DNet
+    from s2v_torch.models.fan import FAN
+    from s2v_torch.models.resnet import ReconNet
+    from s2v_torch.models.s3fd import S3FD
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(3 if slim else 0)
+        models = dict(s3fd=S3FD(), fan=FAN(),
+                      recon=ReconNet(layers=(1, 1, 1, 1), base_planes=8) if slim else ReconNet(),
+                      dnet=DNet(16, 8, 8, 32) if slim else DNet())
+    with torch.no_grad():
+        models["s3fd"].conv3_3_norm_mbox_conf.bias[3] += face_bias
+    return models
 
 
 def clip_inputs(n, h, w, seconds, seed):
@@ -439,18 +487,206 @@ def phase_reference(torch):
     return dict(max_diff=int(d.max()), share_over_1=share, mean=float(d.mean()))
 
 
-def phase_slice(torch, card):
+def decode_margins(hm):
+    """Per landmark of heatmaps [B, 68, h, w], the least change that could
+    move its decode: the top-2 margin of the argmax and, at the argmax, the
+    gaps between the neighbours that set the +-0.25 steps."""
+    b, n, hh, ww = hm.shape
+    flat = hm.flatten(2)
+    top = flat.topk(2, dim=2)
+    idx = top.indices[..., 0]
+    py, px = idx // ww, idx % ww
+
+    def at(dy, dx):
+        return flat.gather(2, ((py + dy).clamp(0, hh - 1) * ww
+                               + (px + dx).clamp(0, ww - 1))[..., None])[..., 0]
+
+    gaps = (top.values[..., 0] - top.values[..., 1]).minimum(
+        (at(0, 1) - at(0, -1)).abs()).minimum((at(1, 0) - at(-1, 0)).abs())
+    return gaps.numpy()
+
+
+def phase_steps_reference(torch):
+    """Steps 1-3 on the card against the CPU from the same weights, f32;
+    each card step after the first takes the CPU's output of the step
+    before, so every comparison sees identical inputs. Boxes and landmarks
+    are argmax decodes: each is compared where its margin exceeds twice the
+    largest card-vs-CPU difference of the scores or heatmaps it decodes (no
+    flip is possible there)."""
+    from s2v_torch.models.fan import box_to_center_scale, crop_faces_batched
+    from s2v_torch.models.s3fd import BGR_MEAN, decode_all
+    from s2v_torch.pipeline.inference import LipSyncPipeline, PipelineModels
+    from s2v_torch.utils.config import ModelConfig, PipelineConfig
+
+    # +3, not +20: the scores stay below 1, so the argmax is no tie
+    models = steps_models(torch, slim=True, face_bias=3.0)
+    rng = np.random.RandomState(4)
+    frames = clip_inputs(3, 192, 160, 0.3, seed=4)["frames"]
+    first_lm = synthetic_landmarks(1, 192, 160, rng)[0]
+    lm256 = synthetic_landmarks(3, 256, 256, rng)
+    cfg = PipelineConfig(model=ModelConfig(dtype="float32"))
+    r = {}
+    for dev in ("cpu", "cuda"):
+        pipe = LipSyncPipeline(cfg, PipelineModels(**copy.deepcopy(models), lm3d=LM3D,
+                                                   expression=np.zeros(64, np.float32)),
+                               device=dev)
+        cpu = r.get("cpu", {})
+        out = {}
+        out["lms"], out["boxes"] = pipe.extract_landmarks(frames, return_boxes=True)
+        out["f256"], out["coords"] = pipe.ffhq_crop(frames, first_lm)
+        f256 = cpu.get("f256", out["f256"])
+        out["sem"] = pipe.extract_coeffs(f256, lm256)
+        out["stab"] = pipe.stabilize(f256, cpu.get("sem", out["sem"]))
+        with torch.no_grad():  # TF32 is off for the whole run
+            x = torch.as_tensor(frames, device=dev).permute(0, 3, 1, 2).float()
+            mean = torch.tensor(BGR_MEAN, device=dev).view(1, 3, 1, 1)
+            maps = pipe.models.s3fd(x.flip(1) - mean)
+            out["maps"] = [t.cpu() for pair in maps for t in pair]
+            out["scores"] = decode_all(maps)[1].cpu()
+            for key, boxes in (("hm", cpu.get("boxes", out["boxes"])),  # identical inputs
+                               ("hm_own", out["boxes"])):  # as extract_landmarks saw them
+                centers, scales = box_to_center_scale(torch.as_tensor(boxes, device=dev))
+                out[key] = pipe.models.fan(crop_faces_batched(x, centers, scales)).cpu()
+        r[dev] = out
+    cpu, card = r["cpu"], r["cuda"]
+
+    def rel(a, b):
+        return (a - b).abs().max().item() / max(1.0, b.abs().max().item())
+
+    top = cpu["scores"].topk(2, dim=1).values
+    score_diff = (card["scores"] - cpu["scores"]).abs().max().item()
+    box_ok = (top[:, 0] - top[:, 1]).numpy() > 2 * score_diff
+    hm_diff = (card["hm_own"] - cpu["hm_own"]).abs().max().item()
+    lm_ok = box_ok[:, None] & (decode_margins(cpu["hm_own"]) > 2 * hm_diff)
+    res = dict(
+        maps_rel=max(rel(a, b) for a, b in zip(card["maps"], cpu["maps"])),
+        hm_rel=rel(card["hm"], cpu["hm"]), score_diff=score_diff, hm_diff=hm_diff,
+        boxes_compared=int(box_ok.sum()), landmarks_compared_share=float(lm_ok.mean()),
+        box_px=float(np.abs(card["boxes"] - cpu["boxes"])[box_ok].max(initial=0.0)),
+        lm_px=float(np.abs(card["lms"] - cpu["lms"])[lm_ok].max(initial=0.0)),
+        crop_levels=int(np.abs(card["f256"].astype(np.int32) - cpu["f256"]).max()),
+        coeff_rel=float(np.abs(card["sem"] - cpu["sem"]).max()
+                        / max(1.0, np.abs(cpu["sem"]).max())),
+        coords_equal=card["coords"] == cpu["coords"])
+    d = np.abs(card["stab"].astype(np.int32) - cpu["stab"].astype(np.int32))
+    res.update(stab_max=int(d.max()), stab_share_over_1=float((d > 1).mean()),
+               stab_mean=float(d.mean()))
+    checks = {"S3FD maps": res["maps_rel"] <= 1e-4, "FAN heatmaps": res["hm_rel"] <= 1e-4,
+              "boxes": res["box_px"] <= 1e-2 and res["boxes_compared"] == len(frames),
+              "landmarks": res["lm_px"] <= 1e-2 and res["landmarks_compared_share"] >= 0.9,
+              "FFHQ crop": res["crop_levels"] <= 1 and res["coords_equal"],
+              "coefficients": res["coeff_rel"] <= 1e-4 and bool(np.isfinite(card["sem"]).all()),
+              "stabilised frames": (res["stab_share_over_1"] <= 1e-3 and res["stab_mean"] < 0.01
+                                    and card["stab"].shape == (3, 256, 256, 3))}
+    print(f"steps reference: Steps 1-3 card vs CPU, f32, 3 frames 192x160: S3FD maps "
+          f"{res['maps_rel']:.2e}, FAN heatmaps {res['hm_rel']:.2e} of scale (tol 1e-4); boxes "
+          f"{res['box_px']:.2e} px over {res['boxes_compared']}/3 frames (score margin > "
+          f"{2 * score_diff:.1e}), landmarks {res['lm_px']:.2e} px over "
+          f"{100 * res['landmarks_compared_share']:.1f}% (heatmap margins > {2 * hm_diff:.1e}; "
+          f"tol 1e-2 px, at least 90%); crops {res['crop_levels']} gray levels; coefficients "
+          f"{res['coeff_rel']:.2e} (tol 1e-4); stabilised max {res['stab_max']}, share > 1 "
+          f"{res['stab_share_over_1']:.2e} (tol 1e-3), mean {res['stab_mean']:.4f} (tol 0.01) "
+          f"{'ok' if all(checks.values()) else 'FAIL'}")
+    for name, ok in checks.items():
+        if not ok:
+            fail(f"steps reference: {name} on the card disagree with the CPU")
+    return res
+
+
+class StepClock:
+    """Times the chained run's steps: synchronised wall ms or, with
+    ``profile``, each step under its own torch.profiler session (device ms
+    and kernel rows)."""
+
+    def __init__(self, torch, profile=False):
+        self.torch, self.profile = torch, profile
+        self.ms, self.device_ms, self.rows = {}, {}, {}
+
+    @contextlib.contextmanager
+    def __call__(self, name):
+        from torch.profiler import ProfilerActivity, profile
+
+        torch = self.torch
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if self.profile:
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                yield
+                torch.cuda.synchronize()
+            self.rows[name] = device_rows(prof)
+            self.device_ms[name] = sum(ms for _, _, ms in self.rows[name])
+        else:
+            yield
+            torch.cuda.synchronize()
+        self.ms[name] = (time.perf_counter() - t0) * 1e3
+
+
+def run_chain(torch, pipe, x, clock):
+    """frames -> Steps 1-3 -> mel -> Step 6 with the final hook, the chain
+    ``LipSyncPipeline.run`` builds with Step 5 off. Landmark-driven geometry
+    takes the clip's synthetic landmarks (the random FAN's are noise).
+    ReconNet's share of extract_coeffs is timed by hooks on its module."""
     from s2v_torch.audio import melspectrogram
+
+    frames = x["frames"]
+    frames_dev = torch.as_tensor(frames, device="cuda")  # the clip crosses once
+    with clock("step1_sweep"):
+        _, boxes = pipe.extract_landmarks(frames_dev, return_boxes=True)
+    with clock("ffhq_crop"):
+        f256, coords = pipe.ffhq_crop(frames, x["lms_full"][0], frames_dev=frames_dev,
+                                      device_out=True)
+    with clock("crop_sweep"):
+        pipe.extract_landmarks(f256)
+    recon_s = []
+
+    def tick(*_):
+        torch.cuda.synchronize()
+        recon_s.append(time.perf_counter())
+
+    hooks = [pipe.models.recon.register_forward_pre_hook(tick),
+             pipe.models.recon.register_forward_hook(tick)]
+    try:
+        with clock("coeffs"):
+            semantic = pipe.extract_coeffs(f256, x["lms_stab"])
+    finally:
+        for h in hooks:
+            h.remove()
+    with clock("dnet"):
+        stab = pipe.stabilize(f256, semantic, device_out=True)
+    with clock("mel"):
+        mel = melspectrogram(torch.from_numpy(x["wav"]).cuda())
+    with clock("synthesize"):
+        out = pipe.synthesize(stab, mel, frames_dev, coords, 25.0, boxes_full=boxes,
+                              lms_full=x["lms_full"], lms_stab=x["lms_stab"])
+    clock.ms["recon"] = sum(b - a for a, b in zip(recon_s[::2], recon_s[1::2])) * 1e3
+    clock.ms["host_alignment"] = clock.ms["coeffs"] - clock.ms["recon"]
+    return out, dict(boxes=boxes, coords=coords, stab=stab, mel=mel, frames_dev=frames_dev,
+                     semantic=semantic)
+
+
+# the Step 1-3 parts timed per frame; "coeffs" (host alignment + ReconNet)
+# is one profiled step
+STEPS = ("step1_sweep", "ffhq_crop", "crop_sweep", "host_alignment", "recon", "dnet")
+PROFILED = ("step1_sweep", "ffhq_crop", "crop_sweep", "coeffs", "dnet")
+
+
+def phase_slice(torch, card):
+    from s2v_torch.audio.melspec import num_mel_chunks
     from s2v_torch.ops.kernels import launch_counts, reset_launch_counts
 
     t = time.perf_counter()
     models = full_models(torch)
-    pipe, hook = make_pipeline(models, 2048, "bfloat16", 512, "cuda")
+    steps = steps_models(torch, slim=False, face_bias=20.0)
+    pipe, hook = make_pipeline(models, 2048, "bfloat16", 512, "cuda", steps=steps)
+
+    def mparams(m):
+        return f"{sum(p.numel() for p in m.parameters()) / 1e6:.1f}M"
+
     print(f"slice: built full-width models in {time.perf_counter() - t:.1f} s "
-          f"(GPEN-BFR-2048 {sum(p.numel() for p in models['facegan'].parameters()) / 1e6:.1f}M "
-          f"params, ENet {sum(p.numel() for p in models['enet'].parameters()) / 1e6:.1f}M, "
-          f"ParseNet {sum(p.numel() for p in models['parsenet'].parameters()) / 1e6:.1f}M, "
-          f"RRDBNet {sum(p.numel() for p in models['srmodel'].parameters()) / 1e6:.1f}M)")
+          f"(S3FD {mparams(steps['s3fd'])}, FAN {mparams(steps['fan'])}, ReconNet "
+          f"{mparams(steps['recon'])}, DNet {mparams(steps['dnet'])}, ENet "
+          f"{mparams(models['enet'])}, GPEN-BFR-2048 {mparams(models['facegan'])}, ParseNet "
+          f"{mparams(models['parsenet'])}, RRDBNet {mparams(models['srmodel'])} params)")
     x = clip_inputs(8, 512, 512, 0.4, seed=0)
 
     stages = {"enet_batch": [], "final": []}
@@ -468,36 +704,40 @@ def phase_slice(torch, card):
     pipe._step6 = timed(pipe._step6, "enet_batch")
     pipe.models.final_enhancer = timed(hook, "final")
 
-    run_slice(torch, pipe, x, "cuda")  # warm-up: cuDNN plans, allocator
+    run_chain(torch, pipe, x, StepClock(torch))  # warm-up: cuDNN plans, allocator
     for v in stages.values():
         v.clear()
     torch.cuda.reset_peak_memory_stats()
 
+    clock = StepClock(torch)
     reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    wav = torch.from_numpy(x["wav"]).cuda()
-    mel = melspectrogram(wav)
-    torch.cuda.synchronize()
-    mel_ms = (time.perf_counter() - t0) * 1e3
-    out = pipe.synthesize(x["stab"], mel, x["frames"], x["coords"], 25.0,
-                          boxes_full=x["boxes"], lms_full=x["lms_full"],
-                          lms_stab=x["lms_stab"])
+    out, inter = run_chain(torch, pipe, x, clock)
     torch.cuda.synchronize()
     total_ms = (time.perf_counter() - t0) * 1e3
     launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
 
-    from s2v_torch.audio.melspec import num_mel_chunks
-
-    n = num_mel_chunks(mel.shape[1], 25.0)
+    n = num_mel_chunks(inter["mel"].shape[1], 25.0)
+    nf = len(x["frames"])
     ok_shape = out.shape == (n, 1024, 1024, 3) and out.dtype == np.uint8
     std = float(out.astype(np.float32).std())
-    print(f"slice: output {out.shape} {out.dtype}, std {std:.2f}, mel {tuple(mel.shape)}, "
-          f"{n} chunks; {'ok' if ok_shape and std > 0 else 'FAIL'}")
+    stab = inter["stab"].cpu().numpy()
+    ok_steps = (inter["boxes"].shape == (nf, 4) and inter["semantic"].shape == (nf, 262)
+                and bool(np.isfinite(inter["semantic"]).all())
+                and stab.shape == (nf, 256, 256, 3) and stab.std() > 0)
+    print(f"slice: Steps 1-3: boxes {inter['boxes'].shape}, FFHQ crop {inter['coords']}, "
+          f"coefficients {inter['semantic'].shape}, stabilised {stab.shape} std "
+          f"{stab.std():.2f}; output {out.shape} {out.dtype}, std {std:.2f}, mel "
+          f"{tuple(inter['mel'].shape)}, {n} chunks; "
+          f"{'ok' if ok_shape and std > 0 and ok_steps else 'FAIL'}")
     if not ok_shape:
         fail(f"slice output {out.shape} {out.dtype}, want ({n}, 1024, 1024, 3) uint8")
     if not std > 0:
         fail("slice output is constant")
+    if not ok_steps:
+        fail("slice: a Step 1-3 output is malformed, constant or not finite")
     want = {"fused_act": 38 * n, "fused_act_bwd": 0, "upfirdn2d": 27 * n}
     for name, count in launches.items():
         print(f"slice: {name} launches {count} on the main path "
@@ -506,51 +746,69 @@ def phase_slice(torch, card):
             fail(f"{name} never launched on the main path")
         elif count != want[name]:
             fail(f"{name} launched {count} times, expected {want[name]}")
-    per = dict(mel_ms=mel_ms, enet_batch_ms=list(stages["enet_batch"]),
+
+    prof = StepClock(torch, profile=True)  # a third run, each step profiled
+    torch.cuda.synchronize()
+    run_chain(torch, pipe, x, prof)
+    steps_wall = sum(clock.ms[k] for k in STEPS)
+    steps_dev = sum(prof.device_ms[k] for k in PROFILED)
+    print(f"slice: Steps 1-3 per frame ({nf} frames), wall / device ms; {card}")
+    # extract_coeffs' device work is ReconNet's; the alignment runs on the host
+    step_dev = dict(prof.device_ms, host_alignment=0.0, recon=prof.device_ms["coeffs"])
+    for k in STEPS:
+        print(f"  {k:15s} {clock.ms[k] / nf:8.2f} / {step_dev[k] / nf:.2f}")
+    print(f"  Steps 1-3 {steps_wall:.1f} ms wall, {steps_dev:.1f} ms device, busy "
+          f"{100 * steps_dev / steps_wall:.1f}% of the unprofiled wall")
+    merged = {}
+    for name in PROFILED:
+        for key, calls, ms in prof.rows[name]:
+            c, m = merged.get(key, (0, 0.0))
+            merged[key] = (c + calls, m + ms)
+    top = sorted(merged.items(), key=lambda kv: -kv[1][1])[:12]
+    print(f"profile: Steps 1-3 ({nf} frames at {x['frames'].shape[1]}x{x['frames'].shape[2]}), "
+          f"top kernels by device ms; {card}")
+    for key, (calls, ms) in top:
+        print(f"  {ms:8.2f} ms {calls:5d}x  {key[:90]}")
+    per = dict(step_wall_ms=dict(clock.ms), step_device_ms=step_dev,
+               steps_wall_ms=steps_wall, steps_device_ms=steps_dev,
+               steps_busy_share=steps_dev / steps_wall,
+               steps_top=[dict(name=k[:90], calls=c, ms=m) for k, (c, m) in top],
+               enet_batch_ms=list(stages["enet_batch"]),
                final_per_frame_ms=sum(stages["final"]) / n, total_ms=total_ms,
-               frames_per_s=n / total_ms * 1e3,
-               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
-    print(f"slice: mel {mel_ms:.1f} ms; ENet per batch "
+               synthesize_ms=clock.ms["synthesize"], mel_ms=clock.ms["mel"],
+               frames_per_s=n / total_ms * 1e3, peak_gib=peak)
+    print(f"slice: mel {per['mel_ms']:.1f} ms; ENet per batch "
           f"{', '.join(f'{v:.1f}' for v in stages['enet_batch'])} ms; final stage "
-          f"{per['final_per_frame_ms']:.1f} ms/frame; synthesize total {total_ms:.1f} ms "
-          f"({per['frames_per_s']:.2f} frames/s); peak {per['peak_gib']:.1f} GiB; {card}")
-    per["profile"] = profile_slice(torch, pipe, x, total_ms)
+          f"{per['final_per_frame_ms']:.1f} ms/frame; synthesize {per['synthesize_ms']:.1f} "
+          f"ms; chain total {total_ms:.1f} ms ({per['frames_per_s']:.2f} frames/s); peak "
+          f"{peak:.1f} GiB; {card}")
+    per["profile"] = profile_rows(prof.rows["synthesize"], "synthesize in the profiled run",
+                                  per["synthesize_ms"])
     return launches, per
 
 
-def profile_slice(torch, pipe, x, unprofiled_ms):
-    """One more run of the slice under torch.profiler (after the launch
-    counts were read): device time by kernel, and the device's busy share of
-    the unprofiled run's wall time (the profiler itself slows the host)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        run_slice(torch, pipe, x, "cuda")
-        torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3
-
-    return dict(profile_rows(prof, "one slice run", unprofiled_ms), wall_ms=wall_ms)
-
-
-def profile_rows(prof, what, unprofiled_ms):
-    """Device time by kernel from a torch.profiler run, and the device's busy
-    share of the unprofiled run's wall time (the profiler slows the host)."""
+def device_rows(prof):
+    """(kernel, calls, device ms) of every device row of a torch.profiler
+    run, largest first."""
     def dev_us(e):
         return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
 
-    rows = [e for e in prof.key_averages()
+    rows = [(e.key, e.count, dev_us(e) / 1e3) for e in prof.key_averages()
             if str(getattr(e, "device_type", "")).endswith("CUDA") and dev_us(e) > 0]
-    busy_ms = sum(dev_us(e) for e in rows) / 1e3
+    return sorted(rows, key=lambda r: -r[2])
+
+
+def profile_rows(rows, what, unprofiled_ms):
+    """Device time by kernel (``device_rows``), and the device's busy share
+    of the unprofiled run's wall time (the profiler slows the host)."""
+    busy_ms = sum(ms for _, _, ms in rows)
     # the port's kernels by their CUDA names (K1 fused_vec/fused_scalar, K2
     # bwd_vec/bwd_scalar, K3 upfirdn2d_strips/upfirdn2d_direct)
-    ours = {name: sum(dev_us(e) for e in rows if any(f"::{k}<" in e.key for k in keys)) / 1e3
+    ours = {name: sum(ms for key, _, ms in rows if any(f"::{k}<" in key for k in keys))
             for name, keys in (("fused_act", ("fused_vec", "fused_scalar")),
                                ("fused_act_bwd", ("bwd_vec", "bwd_scalar")),
                                ("upfirdn2d", ("upfirdn2d_strips", "upfirdn2d_direct")))}
-    rows.sort(key=dev_us, reverse=True)
-    top = [dict(name=e.key[:90], calls=e.count, ms=dev_us(e) / 1e3) for e in rows[:15]]
+    top = [dict(name=key[:90], calls=calls, ms=ms) for key, calls, ms in rows[:15]]
     if busy_ms == 0:
         print(f"profile: {what}: the profiler saw no device time (not measured)")
     else:
@@ -749,7 +1007,7 @@ def profile_g_step(torch, state, g_step, batch, unprofiled_ms):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         g_step(state, batch)
         torch.cuda.synchronize()
-    return profile_rows(prof, "one g_step", unprofiled_ms)
+    return profile_rows(device_rows(prof), "one g_step", unprofiled_ms)
 
 
 def main():
@@ -793,6 +1051,7 @@ def main():
         print(f"kernels only: {len(FAILURES)} failure(s)")
         return 1 if FAILURES else 0
     report["reference"] = phase_reference(torch)
+    report["steps_reference"] = phase_steps_reference(torch)
     launches, report["slice"] = phase_slice(torch, card)
     report["train_reference"] = phase_train_reference(torch)
     train_launches, report["train"] = phase_train(torch, card)

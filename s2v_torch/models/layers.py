@@ -1,4 +1,5 @@
-"""Shared blocks of LNet and ENet (reference: models/base_blocks.py), NCHW.
+"""Shared blocks of LNet, ENet and DNet (reference: models/base_blocks.py),
+NCHW.
 
 Module and parameter names follow the reference's torch modules, so their
 ``state_dict`` keys match the reference checkpoints (spectral-normalised
@@ -10,6 +11,9 @@ Reference quirks kept for checkpoint parity:
 - LayerNorm2d normalises over (C, H, W) jointly with a per-channel affine.
 - StyleConv's noise injection runs only in its zero-noise mode here (the
   inference configuration), so it contributes nothing and is skipped.
+- FineADAINResBlock2d's first branch (conv1, norm1) is overwritten before
+  use in the reference (base_blocks.py:173-177); its parameters stay so
+  checkpoints load, and the branch is not computed.
 """
 
 from __future__ import annotations
@@ -219,3 +223,168 @@ class ToRGB(nn.Module):
                 skip = resize_bilinear(skip, (2 * h, 2 * w))
             out = out + skip
         return out
+
+
+class FineADAINResBlock2d(nn.Module):
+    """base_blocks.py:160-177: out = norm2(conv2(x), z) + x. conv1 and norm1
+    are loaded and never run (the reference overwrites their result)."""
+
+    def __init__(self, features: int, feature_nc: int):
+        super().__init__()
+        self.conv1 = nn.Conv2d(features, features, 3, 1, 1)
+        self.conv2 = nn.Conv2d(features, features, 3, 1, 1)
+        self.norm1 = AdaIN(features, feature_nc)
+        self.norm2 = AdaIN(features, feature_nc)
+
+    def forward(self, x, z):
+        return self.norm2(self.conv2(x), z) + x
+
+
+class FineADAINResBlocks(nn.Module):
+    def __init__(self, num_block: int, features: int, feature_nc: int):
+        super().__init__()
+        self.num_block = num_block
+        for i in range(num_block):
+            setattr(self, f"res{i}", FineADAINResBlock2d(features, feature_nc))
+
+    def forward(self, x, z):
+        for i in range(self.num_block):
+            x = getattr(self, f"res{i}")(x, z)
+        return x
+
+
+class FineEncoder(nn.Module):
+    """base_blocks.py:255-275: FirstBlock2d, then ``layers`` DownBlock2d;
+    returns every level's features."""
+
+    def __init__(self, image_nc: int, ngf: int, img_f: int, layers: int):
+        super().__init__()
+        self.layers = layers
+        self.first = FirstBlock2d(image_nc, ngf)
+        for i in range(layers):
+            setattr(self, f"down{i}", DownBlock2d(min(ngf * 2 ** i, img_f),
+                                                  min(ngf * 2 ** (i + 1), img_f)))
+
+    def forward(self, x):
+        out = [self.first(x)]
+        for i in range(self.layers):
+            out.append(getattr(self, f"down{i}")(out[-1]))
+        return out
+
+
+class FineDecoder(nn.Module):
+    """base_blocks.py:278-305: per level, ADAIN residual blocks, an upsample
+    block and a jump connection; tanh output."""
+
+    def __init__(self, image_nc: int, feature_nc: int, ngf: int, img_f: int, layers: int,
+                 num_block: int):
+        super().__init__()
+        self.layers = layers
+        for i in range(layers):
+            cin, cout = min(ngf * 2 ** (i + 1), img_f), min(ngf * 2 ** i, img_f)
+            setattr(self, f"res{i}", FineADAINResBlocks(num_block, cin, feature_nc))
+            setattr(self, f"up{i}", UpBlock2d(cin, cout))
+            setattr(self, f"jump{i}", Jump(cout, cout))
+        self.final = FinalBlock2d(ngf, image_nc, "tanh")
+
+    def forward(self, skips, z):
+        skips = list(skips)
+        out = skips.pop()
+        for i in reversed(range(self.layers)):
+            out = getattr(self, f"res{i}")(out, z)
+            out = getattr(self, f"up{i}")(out)
+            out = getattr(self, f"jump{i}")(skips.pop()) + out
+        return self.final(out)
+
+
+class ADAINEncoderBlock(nn.Module):
+    """base_blocks.py:195-212: ADAIN -> leaky ReLU -> conv k4 s2, then
+    ADAIN -> leaky ReLU -> conv k3."""
+
+    def __init__(self, cin: int, cout: int, feature_nc: int, slope: float = 0.1):
+        super().__init__()
+        self.conv_0 = nn.Conv2d(cin, cout, 4, 2, 1)
+        self.conv_1 = nn.Conv2d(cout, cout, 3, 1, 1)
+        self.norm_0 = AdaIN(cin, feature_nc)
+        self.norm_1 = AdaIN(cout, feature_nc)
+        self.slope = slope
+
+    def forward(self, x, z):
+        x = self.conv_0(F.leaky_relu(self.norm_0(x, z), self.slope))
+        return self.conv_1(F.leaky_relu(self.norm_1(x, z), self.slope))
+
+
+class ADAINDecoderBlock(nn.Module):
+    """base_blocks.py:215-252 with transposed convs (k3 s2 p1 op1): a
+    shortcut branch and a conv branch, both doubling the resolution."""
+
+    def __init__(self, cin: int, cout: int, hidden: int, feature_nc: int,
+                 slope: float = 0.1):
+        super().__init__()
+        self.conv_0 = nn.Conv2d(cin, hidden, 3, 1, 1)
+        self.conv_1 = nn.ConvTranspose2d(hidden, cout, 3, 2, 1, 1)
+        self.conv_s = nn.ConvTranspose2d(cin, cout, 3, 2, 1, 1)
+        self.norm_0 = AdaIN(cin, feature_nc)
+        self.norm_1 = AdaIN(hidden, feature_nc)
+        self.norm_s = AdaIN(cin, feature_nc)
+        self.slope = slope
+
+    def forward(self, x, z):
+        x_s = self.conv_s(F.leaky_relu(self.norm_s(x, z), self.slope))
+        dx = self.conv_0(F.leaky_relu(self.norm_0(x, z), self.slope))
+        return x_s + self.conv_1(F.leaky_relu(self.norm_1(dx, z), self.slope))
+
+
+class ADAINEncoder(nn.Module):
+    """base_blocks.py ADAINEncoder: a k7 input conv, then ``layers``
+    ADAINEncoderBlocks; returns every level's features."""
+
+    def __init__(self, image_nc: int, feature_nc: int, ngf: int, img_f: int, layers: int):
+        super().__init__()
+        self.layers = layers
+        self.input_layer = nn.Conv2d(image_nc, ngf, 7, 1, 3)
+        for i in range(layers):
+            setattr(self, f"encoder{i}", ADAINEncoderBlock(
+                min(ngf * 2 ** i, img_f), min(ngf * 2 ** (i + 1), img_f), feature_nc))
+
+    def forward(self, x, z):
+        out = [self.input_layer(x)]
+        for i in range(self.layers):
+            out.append(getattr(self, f"encoder{i}")(out[-1], z))
+        return out
+
+
+class ADAINDecoder(nn.Module):
+    """base_blocks.py ADAINDecoder: the top ``decoder_layers`` levels, each
+    concatenated with the encoder's skip of its resolution."""
+
+    def __init__(self, feature_nc: int, ngf: int, img_f: int, encoder_layers: int,
+                 decoder_layers: int):
+        super().__init__()
+        self.levels = range(encoder_layers - decoder_layers, encoder_layers)
+        for i in self.levels:
+            cin = min(ngf * 2 ** (i + 1), img_f) * (1 if i == encoder_layers - 1 else 2)
+            cout = min(ngf * 2 ** i, img_f)
+            setattr(self, f"decoder{i}", ADAINDecoderBlock(cin, cout, cout, feature_nc))
+        self.output_nc = 2 * min(ngf * 2 ** self.levels[0], img_f)
+
+    def forward(self, skips, z):
+        skips = list(skips)
+        out = skips.pop()
+        for i in reversed(self.levels):
+            out = torch.cat([getattr(self, f"decoder{i}")(out, z), skips.pop()], 1)
+        return out
+
+
+class ADAINHourglass(nn.Module):
+    """base_blocks.py:308-365: the ADAIN encoder and skip decoder above."""
+
+    def __init__(self, image_nc: int, feature_nc: int, ngf: int, img_f: int,
+                 encoder_layers: int, decoder_layers: int):
+        super().__init__()
+        self.encoder = ADAINEncoder(image_nc, feature_nc, ngf, img_f, encoder_layers)
+        self.decoder = ADAINDecoder(feature_nc, ngf, img_f, encoder_layers, decoder_layers)
+        self.output_nc = self.decoder.output_nc
+
+    def forward(self, x, z):
+        return self.decoder(self.encoder(x, z), z)

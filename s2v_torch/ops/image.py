@@ -33,6 +33,11 @@ def resize_nearest(x: torch.Tensor, out_hw) -> torch.Tensor:
     return F.interpolate(x, size=tuple(out_hw), mode="nearest")
 
 
+def avg_pool_2x2(x: torch.Tensor) -> torch.Tensor:
+    """``nn.AvgPool2d(2)`` (FAN's hourglass and stem)."""
+    return F.avg_pool2d(x, 2)
+
+
 def reflect_pad_2d(x: torch.Tensor, pad: int) -> torch.Tensor:
     """``F.pad(mode='reflect')`` on both spatial axes (REFLECT_101)."""
     return F.pad(x, [pad, pad, pad, pad], mode="reflect")

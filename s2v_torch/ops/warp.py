@@ -8,6 +8,9 @@
   per-frame interpolation weights (zero weight outside the image).
 - ``affine_warp``: batched ``cv2.warpAffine`` with bilinear sampling and a
   zero border, the grid built on the device from the 2x3 matrices.
+- ``convert_flow_to_deformation`` / ``warp_image``: DNet's flow warp
+  (reference: futils/flow_util.py:3-56), a pixel-unit flow added to the
+  identity grid, upsampled to the image and sampled with ``grid_sample``.
 """
 
 from __future__ import annotations
@@ -15,11 +18,42 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from s2v_torch.ops.image import resize_bilinear
+
 
 def grid_sample_bilinear(image: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
     """image [B, C, H, W]; grid [B, Hg, Wg, 2] of (x, y) in [-1, 1]."""
     return F.grid_sample(image, grid, mode="bilinear", padding_mode="zeros",
                          align_corners=False)
+
+
+def make_coordinate_grid(h: int, w: int, device=None) -> torch.Tensor:
+    """[H, W, 2] grid of (x, y) in [-1, 1] (flow_util.py:17-38)."""
+    x = torch.linspace(-1.0, 1.0, w, device=device)
+    y = torch.linspace(-1.0, 1.0, h, device=device)
+    return torch.stack([x[None, :].expand(h, w), y[:, None].expand(h, w)], dim=-1)
+
+
+def convert_flow_to_deformation(flow: torch.Tensor) -> torch.Tensor:
+    """Pixel-unit flow [B, 2, H, W] (dx, dy) -> normalised deformation grid
+    [B, H, W, 2]: the flow scaled by 2 / (size - 1) per axis plus the
+    identity grid (flow_util.py:3-15)."""
+    _, _, h, w = flow.shape
+    scale = torch.tensor([2.0 / (w - 1), 2.0 / (h - 1)], dtype=flow.dtype, device=flow.device)
+    grid = make_coordinate_grid(h, w, flow.device).to(flow.dtype)
+    return grid[None] + flow.permute(0, 2, 3, 1) * scale
+
+
+def warp_image(source: torch.Tensor, deformation: torch.Tensor) -> torch.Tensor:
+    """Sample ``source`` [B, C, H, W] at ``deformation`` [B, Hd, Wd, 2],
+    bilinearly upsampled to (H, W) first when it is smaller (DNet predicts
+    its flow at 64^2 and warps 256^2, flow_util.py:41-56). The sample runs
+    in f32; the result has the source's dtype."""
+    h, w = source.shape[2:]
+    grid = deformation.float()
+    if tuple(grid.shape[1:3]) != (h, w):
+        grid = resize_bilinear(grid.permute(0, 3, 1, 2), (h, w)).permute(0, 2, 3, 1)
+    return grid_sample_bilinear(source.float(), grid).to(source.dtype)
 
 
 def _interp_weights(src: torch.Tensor, size: int) -> torch.Tensor:

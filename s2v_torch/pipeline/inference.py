@@ -1,18 +1,25 @@
-"""Step 6 of the lip-sync pipeline on the card: ENet synthesis, paste-back
-and the final full-frame enhancement (reference: inference.py:259-330;
-s2v_tpu/pipeline/inference.py ``LipSyncPipeline.synthesize``).
+"""The lip-sync pipeline on the card, from a clip's frames to the enhanced
+output (reference: inference.py main() + preprocessing/facing.py;
+s2v_tpu/pipeline/inference.py ``LipSyncPipeline``):
 
-The port's slice of ``synthesize`` runs with detections reused
-(config ``model.reuse_detections``): the caller supplies what Steps 1-3
-produce — the stabilised 256^2 frames, the FFHQ crop ``coordinates``, the
-Step-1 boxes and 68-point landmarks of the full and the stabilised frames —
-and optional hooks: ``final_enhancer`` (GPEN-BFR-2048 + RealESRNet x2,
-``s2v_torch.pipeline.enhance``). The detectors, DNet, Step 5, the mouth
-restorer and the I/O around them are not ported yet.
+- Step 1: ``extract_landmarks`` (S3FD box -> FAN 68 landmarks, one sweep
+  per frame chunk; ``return_boxes`` keeps the boxes for Step 6) and
+  ``ffhq_crop`` (the first frame's FFHQ quad, 256^2 crops).
+- Step 2: ``extract_coeffs``: ``align_img`` on the host (Pillow's resample
+  rebuilt in numpy) and ReconNet's 257 3DMM coefficients, batched.
+- Step 3: ``stabilize``: the 26-frame coefficient windows with the
+  expression overwritten, then DNet.
+- Step 4 is ``s2v_torch.audio.melspectrogram``; Step 5 (the GPEN-512
+  reference enhancer) is not ported and stays off.
+- Step 6: ``synthesize``: reference faces, ENet synthesis and paste-back,
+  then the ``final_enhancer`` hook (GPEN-BFR-2048 + RealESRNet x2,
+  ``s2v_torch.pipeline.enhance``), which takes the Step-1 landmarks
+  (config ``model.reuse_detections``): its RetinaFace path is not ported.
 
-Public layout as s2v_tpu: NHWC uint8 frames, x1y1x2y2 boxes, [N, 68, 2]
-landmarks. Frames cross to the device once; intermediates stay there as
-NCHW float tensors.
+S3FD, FAN and ReconNet run in full f32 (no TF32); DNet and ENet under bf16
+autocast on the card when ``model.dtype`` is bfloat16. Public layout as
+s2v_tpu: NHWC uint8 frames, x1y1x2y2 boxes, [N, 68, 2] landmarks. Frames
+cross to the device once; intermediates stay there as NCHW float tensors.
 """
 
 from __future__ import annotations
@@ -24,24 +31,38 @@ import numpy as np
 import torch
 
 from s2v_torch.audio.melspec import mel_chunks_for_frames, num_mel_chunks
-from s2v_torch.device import resolve_device
-from s2v_torch.models.fan import lm68_to_lm5
-from s2v_torch.models.s3fd import pad_and_smooth_boxes
+from s2v_torch.device import full_f32, resolve_device
+from s2v_torch.models.fan import (box_to_center_scale, crop_faces_batched,
+                                  heatmaps_to_landmarks, lm68_to_lm5)
+from s2v_torch.models.s3fd import BGR_MEAN, best_boxes, pad_and_smooth_boxes
 from s2v_torch.ops.image import frames_to_nchw, resize_bilinear
 from s2v_torch.ops.warp import affine_warp, crop_resize_boxes, paste_resize_boxes
-from s2v_torch.pipeline.align import compute_transform, crop_quad_params, quad_from_cxy
+from s2v_torch.pipeline.align import (compute_transform, crop_quad_params, ffhq_crop_box,
+                                      quad_from_cxy)
+from s2v_torch.pipeline.face3d_prep import align_img
+from s2v_torch.pipeline.utils import find_crop_norm_ratio, transform_semantic
 from s2v_torch.utils.config import PipelineConfig
+
+_MODULES = ("s3fd", "fan", "recon", "dnet", "enet")
 
 
 @dataclass
 class PipelineModels:
     """Loaded modules per stage; None disables the stage.
 
+    lm3d: [5, 3] standard 3D landmarks (``face3d_prep.load_lm3d``);
+    expression: [64] template expression coefficients.
     final_enhancer(frames [B, H, W, 3] uint8, boxes [B, 4] x1y1x2y2,
     landmarks5=[B, 5, 2], det_boxes=[B, 4]) -> [B, 2H, 2W, 3] uint8.
     """
 
+    s3fd: Optional[torch.nn.Module] = None
+    fan: Optional[torch.nn.Module] = None
+    recon: Optional[torch.nn.Module] = None
+    dnet: Optional[torch.nn.Module] = None
     enet: Optional[torch.nn.Module] = None
+    lm3d: Optional[np.ndarray] = None
+    expression: Optional[np.ndarray] = None
     final_enhancer: Optional[Callable] = None
 
 
@@ -78,24 +99,206 @@ def _frame_index(i: int, n_frames: int, static: bool) -> int:
     return j if j < n_frames else period - j
 
 
+def _host(x) -> np.ndarray:
+    return x.cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
+
+
 class LipSyncPipeline:
     def __init__(self, cfg: PipelineConfig, models: PipelineModels, device=None):
         self.cfg = cfg
         self.models = models
         self.device = resolve_device(device)
-        if models.enet is not None:
-            models.enet.to(self.device).eval()
+        for name in _MODULES:
+            module = getattr(models, name)
+            if module is not None:
+                module.to(self.device).eval()
         self.amp = cfg.model.dtype == "bfloat16" and self.device.type == "cuda"
+
+    def _require(self, *names: str) -> None:
+        missing = [n for n in names if getattr(self.models, n) is None]
+        if missing:
+            raise RuntimeError(f"the pipeline needs the models: {', '.join(missing)}")
+
+    def _autocast(self):
+        return torch.autocast(self.device.type, dtype=torch.bfloat16, enabled=self.amp)
+
+    # ------------------------------------------------------------------
+    # Step 1: detection + landmarks
+    # ------------------------------------------------------------------
+
+    def _detect(self, x: torch.Tensor):
+        """x [B, 3, H, W] RGB 0..255 -> (boxes [B, 4], valid [B])."""
+        mean = torch.tensor(BGR_MEAN, device=x.device).view(1, 3, 1, 1)
+        return best_boxes(self.models.s3fd(x.flip(1) - mean))
+
+    def _landmarks(self, x: torch.Tensor):
+        """x [B, 3, H, W] RGB 0..255 -> (boxes, valid, landmarks [B, 68, 2])."""
+        boxes, valid = self._detect(x)
+        centers, scales = box_to_center_scale(boxes)
+        hm = self.models.fan(crop_faces_batched(x, centers, scales))
+        return boxes, valid, heatmaps_to_landmarks(hm, centers, scales)
+
+    @torch.no_grad()
+    def _sweep(self, fn, frames, batch: int):
+        """``fn`` over the frames [N, H, W, 3] uint8 in chunks of ``batch``,
+        each chunk crossing to the device as it is needed; results joined on
+        the host. On device OOM the batch is halved and the sweep restarts
+        (the reference's face_detect back-off, inference_utils.py:110-128)."""
+        n = len(frames)
+        while True:
+            try:
+                with full_f32():
+                    res = [fn(frames_to_nchw(frames[i:i + batch], self.device))
+                           for i in range(0, n, batch)]
+                break
+            except torch.cuda.OutOfMemoryError:
+                if batch == 1:
+                    raise
+                batch //= 2
+                print(f"Recovering from OOM error; New batch size: {batch}")
+        return [np.concatenate([_host(r[k]) for r in res]) for k in range(len(res[0]))]
+
+    @staticmethod
+    def _check_found(valid: np.ndarray) -> None:
+        if not valid.all():
+            # the reference raises on undetected faces (inference_utils.py:132-134)
+            raise ValueError(f"Face not detected in frame {int(np.argmin(valid))}! Ensure "
+                             "the video contains a face in all the frames.")
+
+    def detect_boxes(self, frames_rgb, batch: int = 32) -> np.ndarray:
+        """[N, H, W, 3] uint8 RGB (numpy or tensor) -> [N, 4] best face
+        boxes (float, clipped at 0)."""
+        self._require("s3fd")
+        boxes, valid = self._sweep(self._detect, frames_rgb, batch)
+        self._check_found(valid)
+        return boxes
+
+    def extract_landmarks(self, frames_rgb, batch: int = 32, return_boxes: bool = False):
+        """[N, H, W, 3] uint8 RGB -> [N, 68, 2] landmarks (KeypointExtractor:
+        S3FD box -> FAN heatmaps -> coordinates, one sweep). With
+        ``return_boxes`` also the S3FD boxes, so Step 6 needs no second
+        detection sweep."""
+        self._require("s3fd", "fan")
+        boxes, valid, lms = self._sweep(self._landmarks, frames_rgb, batch)
+        self._check_found(valid)
+        return (lms, boxes) if return_boxes else lms
+
+    @torch.no_grad()
+    def ffhq_crop(self, frames_rgb, first_lm: np.ndarray, frames_dev=None,
+                  device_out: bool = False):
+        """Step-1 crop (facing.py:74-86): the first frame's FFHQ quad on
+        every frame, resized to 256^2. ``frames_dev`` is the clip already
+        on the device (else ``frames_rgb`` crosses); ``device_out`` keeps the
+        crops there. Returns (frames_256 [N, 256, 256, 3] uint8,
+        (oy1, oy2, ox1, ox2))."""
+        h, w = frames_rgb.shape[1:3]
+        crop, quad = ffhq_crop_box(np.asarray(first_lm, np.float64), (w, h), 512)
+        clx, cly, crx, cry = crop
+        lx, ly, rx, ry = [int(v) for v in quad]
+        src = frames_rgb if frames_dev is None else frames_dev
+        # the reference's double slice [cly:cry][ly:ry] in absolute bounds
+        region = frames_to_nchw(src[:, cly + ly:min(cly + ry, cry), clx + lx:min(clx + rx, crx)],
+                                self.device)
+        out = torch.clamp(resize_bilinear(region, (256, 256)), 0, 255).to(torch.uint8)
+        out = out.permute(0, 2, 3, 1)
+        coords = (cly + ly, min(cly + ry, h), clx + lx, min(clx + rx, w))
+        return (out if device_out else out.cpu().numpy()), coords
+
+    # ------------------------------------------------------------------
+    # Step 2: 3DMM coefficients
+    # ------------------------------------------------------------------
+
+    @torch.no_grad()
+    def extract_coeffs(self, frames_256, lm: np.ndarray, batch: int = 32) -> np.ndarray:
+        """facing.py:99-134: align each frame to 224^2 on the host, then
+        ReconNet -> [N, 262]: 257 coefficients + 5 alignment parameters."""
+        self._require("recon", "lm3d")
+        lm3d = self.models.lm3d
+        frames = _host(frames_256)
+        n, h = len(frames), frames.shape[1]
+        aligned = np.zeros((n, 224, 224, 3), np.uint8)
+        trans_params = np.zeros((n, 5), np.float32)
+        for i in range(n):
+            lm_i = np.array(lm[i], copy=True)
+            if np.mean(lm_i) == -1:  # no-face sentinel (facing.py:112-114)
+                lm_i = (lm3d[:, :2] + 1) / 2.0
+                lm_i = np.concatenate([lm_i[:, :1] * frames.shape[2], lm_i[:, 1:2] * h], 1)
+            else:
+                lm_i[:, -1] = h - 1 - lm_i[:, -1]
+            trans_params[i], aligned[i], _ = align_img(frames[i], lm_i, lm3d)
+        coeffs = []
+        with full_f32():
+            for i in range(0, n, batch):
+                x = frames_to_nchw(aligned[i:i + batch], self.device) / 255.0
+                coeffs.append(self.models.recon(x).float().cpu().numpy())
+        return np.concatenate([np.concatenate(coeffs), trans_params], axis=1)
+
+    # ------------------------------------------------------------------
+    # Step 3: DNet stabilisation
+    # ------------------------------------------------------------------
+
+    def _stab_coeffs(self, semantic: torch.Tensor, one_shot: bool) -> torch.Tensor:
+        """DNet's driving windows [N, 73, 26] (facing.py:135-198): the
+        per-frame crop-norm ratio (the reference recomputes
+        find_crop_norm_ratio with each frame as source: one [N, N] argmin
+        here), or the first frame's with ``one_shot``; the expression rows
+        overwritten with the template."""
+        if one_shot:
+            ratio = find_crop_norm_ratio(semantic[0:1], semantic)
+        else:
+            alpha = 0.3
+            exp, ang = semantic[:, 80:144], semantic[:, 224:227]
+            ed = (exp[None] - exp[:, None]).abs().mean(-1)
+            ad = (ang[None] - ang[:, None]).abs().mean(-1)
+            index = torch.argmin(alpha * ed + (1 - alpha) * ad, dim=1)
+            ratio = semantic[:, -3] / semantic[index, -3]
+        coeff = transform_semantic(semantic, ratio)
+        expr = torch.as_tensor(np.asarray(self.models.expression), dtype=torch.float32,
+                               device=semantic.device)
+        coeff[:, :64, :] = expr[None, :, None]
+        return coeff
+
+    @torch.no_grad()
+    def stabilize(self, frames_256, semantic: np.ndarray, batch: int = 16,
+                  one_shot: bool = False, device_out: bool = False):
+        """facing.py:135-198: per-frame coefficient windows, the expression
+        overwrite, DNet -> stabilised 256^2 frames (uint8 RGB, numpy, or a
+        device tensor with ``device_out``). ``frames_256`` may be on the
+        device."""
+        self._require("dnet", "expression")
+        n = len(frames_256)
+        sem = torch.as_tensor(np.asarray(semantic), dtype=torch.float32, device=self.device)
+        coeff = self._stab_coeffs(sem, bool(one_shot))
+        src = frames_256
+        if one_shot:
+            src = (np.repeat(src[:1], n, 0) if isinstance(src, np.ndarray)
+                   else src[:1].expand(n, *src.shape[1:]))
+        out = []
+        for i in range(0, n, batch):
+            img = frames_to_nchw(src[i:i + batch], self.device) / 255.0 * 2.0 - 1.0
+            with self._autocast():
+                fake = self.models.dnet(img, coeff[i:i + batch])["fake_image"]
+            fake = torch.clamp((fake.float() + 1.0) / 2.0 * 255.0, 0, 255).to(torch.uint8)
+            out.append(fake.permute(0, 2, 3, 1))
+        out = torch.cat(out)
+        return out if device_out else out.cpu().numpy()
+
+    # ------------------------------------------------------------------
+    # Step 6: synthesis
+    # ------------------------------------------------------------------
 
     @torch.no_grad()
     def build_reference_faces(self, stabilized, full_frames, coordinates,
-                              boxes: np.ndarray, lms: np.ndarray) -> torch.Tensor:
+                              boxes: np.ndarray, lms: Optional[np.ndarray] = None
+                              ) -> torch.Tensor:
         """datagen's reference construction (inference.py:341-367): re-align
         each stabilised face, paste it into the full frame through the
         inverse transform, cut the detector box. stabilized [N, 256, 256, 3]
         and full_frames [N, H, W, 3] uint8 (numpy or tensor); boxes [N, 4]
-        x1y1x2y2; lms [N, 68, 2] of the stabilised frames. Returns
-        [N, 3, img, img] float32 (0..255) on the device."""
+        x1y1x2y2; lms [N, 68, 2] of the stabilised frames, swept here when
+        None. Returns [N, 3, img, img] float32 (0..255) on the device."""
+        if lms is None:
+            lms = self.extract_landmarks(stabilized)
         stab = frames_to_nchw(stabilized, self.device)
         full = frames_to_nchw(full_frames, self.device)
         oy1, oy2, ox1, ox2 = [int(v) for v in coordinates]
@@ -128,7 +331,7 @@ class LipSyncPipeline:
         masked = ofaces.clone()
         masked[:, :, img // 2:] = 0.0
         ref = refs / 255.0
-        with torch.autocast(self.device.type, dtype=torch.bfloat16, enabled=self.amp):
+        with self._autocast():
             pred, _ = self.models.enet(mel, torch.cat([masked, ref], 1), ref)
         pred = torch.clamp(pred.float(), 0.0, 1.0)
         return torch.clamp(paste_resize_boxes(frames, pred * 255.0, boxes),
@@ -136,33 +339,45 @@ class LipSyncPipeline:
 
     @torch.no_grad()
     def synthesize(self, stabilized, mel: torch.Tensor, full_frames, coordinates,
-                   fps: float, boxes_full: np.ndarray, lms_full: np.ndarray,
-                   lms_stab: np.ndarray) -> np.ndarray:
-        """Step 6 with detections reused. stabilized [N, 256, 256, 3] uint8;
+                   fps: float, boxes_full: Optional[np.ndarray] = None,
+                   lms_full: Optional[np.ndarray] = None,
+                   lms_stab: Optional[np.ndarray] = None) -> np.ndarray:
+        """Step 6 (inference.py:259-330). stabilized [N, 256, 256, 3] uint8;
         mel [80, T]; full_frames [N, H, W, 3] uint8; coordinates (oy1, oy2,
-        ox1, ox2) of the FFHQ crop; boxes_full [N, 4] x1y1x2y2; lms_full and
-        lms_stab [N, 68, 2]. Returns [n_chunks, H', W', 3] uint8 with H' = 2H
-        when the final enhancer runs."""
-        if self.models.enet is None:
-            raise RuntimeError("synthesize needs the ENet model")
-        if not self.cfg.model.reuse_detections:
-            raise NotImplementedError(
-                "the port runs Step 6 with model.reuse_detections: the "
-                "detectors are not ported yet")
+        ox1, ox2) of the FFHQ crop. boxes_full [N, 4] x1y1x2y2 are the Step-1
+        boxes (detected here when None); lms_full the Step-1 landmarks, which
+        the final enhancer takes under ``model.reuse_detections``; lms_stab
+        the landmarks of ``stabilized`` (swept here when None). Returns
+        [n_chunks, H', W', 3] uint8 with H' = 2H when the final enhancer
+        runs."""
+        self._require("enet")
         cfg = self.cfg
+        if self.models.final_enhancer is not None and not (
+                cfg.model.reuse_detections and lms_full is not None):
+            raise NotImplementedError(
+                "the port's final enhancer takes the Step-1 landmarks "
+                "(model.reuse_detections with lms_full): its RetinaFace path "
+                "is not ported yet")
         n_chunks = num_mel_chunks(mel.shape[1], fps)
         n_frames = min(len(stabilized), n_chunks)
-        frames_t = np.ascontiguousarray(np.asarray(full_frames)[:n_frames])
+        frames_t = full_frames[:n_frames]
+        if not torch.is_tensor(frames_t):
+            frames_t = np.ascontiguousarray(frames_t)
         chunks = mel_chunks_for_frames(mel.to(self.device).float(), n_chunks, fps)
+        if boxes_full is None:
+            # no Step-1 boxes supplied: the reference re-detects here
+            # (inference.py:379 datagen)
+            boxes_full = self.detect_boxes(frames_t)
         boxes = pad_and_smooth_boxes(np.asarray(boxes_full)[:n_frames],
                                      frames_t.shape[1:3], pads=cfg.infer.pads,
                                      smooth=not cfg.infer.nosmooth)
         frames_dev = torch.as_tensor(frames_t, device=self.device)  # crosses once
         full = frames_to_nchw(frames_dev, self.device)
-        refs = self.build_reference_faces(np.asarray(stabilized)[:n_frames], frames_dev,
-                                          coordinates, boxes,
-                                          np.asarray(lms_stab)[:n_frames])
-        lm5 = lm68_to_lm5(np.asarray(lms_full)[:n_frames]).astype(np.float32)
+        refs = self.build_reference_faces(
+            stabilized[:n_frames], frames_dev, coordinates, boxes,
+            None if lms_stab is None else np.asarray(lms_stab)[:n_frames])
+        lm5 = (None if lms_full is None
+               else lm68_to_lm5(np.asarray(lms_full)[:n_frames]).astype(np.float32))
         boxes_dev = torch.as_tensor(boxes.astype(np.float32), device=self.device)
 
         batch = cfg.infer.lnet_batch_size

@@ -8,7 +8,8 @@
 - ``*_from_jax(variables)``: s2v_tpu's flax variable trees (numpy leaves)
   -> the port module's ``state_dict``, the inverse of s2v_tpu's
   ``convert_*`` (conv HWIO -> OIHW, dense [in, out] -> [out, in],
-  LayerNorm2d (C,) -> (C, 1, 1), modulated conv HWIO -> (1, O, I, k, k)).
+  LayerNorm2d (C,) -> (C, 1, 1), modulated conv HWIO -> (1, O, I, k, k),
+  transposed conv HWOI -> IOHW, conv1d [k, in, out] -> [out, in, k]).
 """
 
 from __future__ import annotations
@@ -20,7 +21,8 @@ import torch
 import torch.nn as nn
 
 from s2v_torch.models.gpen import BLUR_TAPS, make_kernel
-from s2v_torch.ops.convs import conv_weight_from_hwio, linear_weight_from_dense
+from s2v_torch.ops.convs import (conv1d_weight_from_kio, conv_transpose_weight_from_hwoi,
+                                 conv_weight_from_hwio, linear_weight_from_dense)
 
 StateDict = Dict[str, torch.Tensor]
 
@@ -289,3 +291,113 @@ def rrdbnet_from_jax(variables) -> StateDict:
                 _conv(p[f"body{i}"][f"rdb{j}"][f"conv{k}"], f"body.{i}.rdb{j}.conv{k}", sd)
     return sd
 
+
+def s3fd_from_jax(variables) -> StateDict:
+    """s2v_tpu S3FD variables -> S3FD state_dict (net_s3fd.py names)."""
+    p = variables["params"]
+    sd: StateDict = {}
+    for name, d in p.items():
+        if name.endswith("_norm"):
+            sd[f"{name}.weight"] = _t(d["weight"])
+        else:
+            _conv(d, name, sd)
+    return sd
+
+
+def _fan_convblock(p, s, prefix: str, sd: StateDict) -> None:
+    for i in (1, 2, 3):
+        _bn(p[f"bn{i}"], s[f"bn{i}"], f"{prefix}.bn{i}", sd)
+        _conv(p[f"conv{i}"], f"{prefix}.conv{i}", sd)
+    if "downsample_bn" in p:
+        _bn(p["downsample_bn"], s["downsample_bn"], f"{prefix}.downsample.0", sd)
+        _conv(p["downsample_conv"], f"{prefix}.downsample.2", sd)
+
+
+def fan_from_jax(variables) -> StateDict:
+    """s2v_tpu FAN variables -> FAN state_dict (face_alignment names)."""
+    p, s = variables["params"], variables["batch_stats"]
+    sd: StateDict = {}
+    for name, d in p.items():
+        if name in ("conv2", "conv3", "conv4") or name.startswith("top_m_"):
+            _fan_convblock(d, s[name], name, sd)
+        elif name.startswith("m") and name[1:].isdigit():  # hourglasses
+            for blk, bd in d.items():
+                _fan_convblock(bd, s[name][blk], f"{name}.{blk}", sd)
+        elif name.startswith("bn"):  # bn1, bn_end*
+            _bn(d, s[name], name, sd)
+        else:  # conv1, conv_last*, l*, bl*, al*
+            _conv(d, name, sd)
+    return sd
+
+
+def recon_from_jax(variables) -> StateDict:
+    """s2v_tpu ReconNet variables -> ReconNet state_dict (the ``net_recon``
+    layout: torchvision ``backbone.*`` + ``final_layers.*``)."""
+    p, s = variables["params"], variables["batch_stats"]
+    bb, bs = p["backbone"], s["backbone"]
+    sd: StateDict = {}
+    _conv(bb["conv1"], "backbone.conv1", sd)
+    _bn(bb["bn1"], bs["bn1"], "backbone.bn1", sd)
+    for name, d in bb.items():
+        if not name.startswith("layer"):
+            continue
+        stage, block = name[len("layer"):].split("_")
+        pre = f"backbone.layer{stage}.{block}"
+        for i in (1, 2, 3):
+            _conv(d[f"conv{i}"], f"{pre}.conv{i}", sd)
+            _bn(d[f"bn{i}"], bs[name][f"bn{i}"], f"{pre}.bn{i}", sd)
+        if "downsample_conv" in d:
+            _conv(d["downsample_conv"], f"{pre}.downsample.0", sd)
+            _bn(d["downsample_bn"], bs[name]["downsample_bn"], f"{pre}.downsample.1", sd)
+    for name, d in p.items():
+        if name.startswith("head"):
+            _conv(d, f"final_layers.{name[len('head'):]}", sd)
+    return sd
+
+
+def _conv_transpose(d, prefix: str, sd: StateDict) -> None:
+    sd[f"{prefix}.weight"] = _t(conv_transpose_weight_from_hwoi(d["weight"]))
+    sd[f"{prefix}.bias"] = _t(d["bias"])
+
+
+def dnet_from_jax(variables) -> StateDict:
+    """s2v_tpu DNet variables -> DNet state_dict (DNet.pt's names,
+    ``warpping_net`` included)."""
+    p = variables["params"]
+    sd: StateDict = {}
+    for name, w in p["mapping_net"].items():
+        if name.endswith("_weight"):
+            base = name[:-len("_weight")]
+            key = "mapping_net.first.0" if base == "first" else f"mapping_net.{base}.1"
+            sd[f"{key}.weight"] = _t(conv1d_weight_from_kio(w))
+            sd[f"{key}.bias"] = _t(p["mapping_net"][f"{base}_bias"])
+    wp = p["warpping_net"]
+    hg = "warpping_net.hourglass"
+    for name, blk in wp["hourglass"].items():
+        if name == "input_layer":
+            _conv(blk, f"{hg}.encoder.input_layer", sd)
+            continue
+        pre = f"{hg}.{'encoder' if name.startswith('encoder') else 'decoder'}.{name}"
+        for part, d in blk.items():
+            if part.startswith("norm"):
+                _adain(d, f"{pre}.{part}", sd)
+            elif part == "conv_0" or name.startswith("encoder"):
+                _conv(d, f"{pre}.{part}", sd)
+            else:  # the decoder's transposed conv_1 and conv_s
+                _conv_transpose(d, f"{pre}.{part}", sd)
+    _ln2d(wp["flow_norm"], "warpping_net.flow_out.0", sd)
+    _conv(wp["flow_conv"], "warpping_net.flow_out.2", sd)
+    ed = p["editing_net"]
+    for name, blk in ed["encoder"].items():
+        _norm_block(blk, f"editing_net.encoder.{name}", sd)
+    for name, blk in ed["decoder"].items():
+        pre = f"editing_net.decoder.{name}"
+        if name == "final":
+            _conv(blk["conv"], f"{pre}.model.0", sd)
+        elif name.startswith("res"):
+            for j, res in blk.items():
+                for part, d in res.items():
+                    (_adain if part.startswith("norm") else _conv)(d, f"{pre}.{j}.{part}", sd)
+        else:  # up*, jump*
+            _norm_block(blk, pre, sd)
+    return sd

@@ -267,3 +267,66 @@ def test_upfirdn2d_function_backward_and_double_backward(card, dtype, up, down, 
     for a, ref in zip(got, want):
         assert a.shape == ref.shape
         assert (a - ref).abs().max().item() <= _grad_tolerance(dtype, ref)
+
+
+def _outputs(out):
+    """Every tensor of a module's output (a tensor, a dict or a list of pairs)."""
+    if torch.is_tensor(out):
+        return [out]
+    if isinstance(out, dict):
+        return list(out.values())
+    return [t for pair in out for t in pair]
+
+
+def _steps_module(name):
+    """Step 1-3 modules and inputs: S3FD at full width on 128^2 frames, FAN
+    with one module on 128^2 crops, ReconNet and DNet slim (DNet on 64^2,
+    whose flow is upsampled to the image before the warp)."""
+    from s2v_torch.models.dnet import DNet
+    from s2v_torch.models.fan import FAN
+    from s2v_torch.models.resnet import ReconNet
+    from s2v_torch.models.s3fd import S3FD
+
+    torch.manual_seed(6)
+    if name == "s3fd":
+        return S3FD(), (torch.rand(2, 3, 128, 128) * 255 - 110,)
+    if name == "fan":
+        return FAN(num_modules=1), (torch.rand(2, 3, 128, 128),)
+    if name == "recon":
+        return ReconNet(layers=(1, 1, 1, 1), base_planes=8), (torch.rand(2, 3, 96, 96),)
+    return DNet(16, 8, 8, 32), (torch.rand(2, 3, 64, 64) * 2 - 1, torch.randn(2, 73, 26))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["s3fd", "fan", "recon", "dnet"])
+def test_steps_modules_on_the_card_match_the_cpu(card, name):
+    """f32 without TF32 (the card fixture), so cuDNN and the CPU differ only
+    in summation order: 1e-4 of each output's scale."""
+    module, inputs = _steps_module(name)
+    module.eval()
+    with torch.no_grad():
+        want = _outputs(module(*inputs))
+        got = _outputs(module.to(card)(*[i.to(card) for i in inputs]))
+    assert len(got) == len(want)
+    for a, ref in zip(got, want):
+        assert a.shape == ref.shape
+        assert (a.cpu() - ref).abs().max().item() <= 1e-4 * max(1.0, ref.abs().max().item())
+
+
+@pytest.mark.cuda
+def test_fan_crop_and_decode_on_the_card_match_the_cpu(card):
+    """The FAN pre-crop within 1e-5 (values in [0, 1]); the heatmap decode on
+    identical heatmaps within 1e-3 px (the argmax and +-0.25 steps equal)."""
+    from s2v_torch.models.fan import box_to_center_scale, crop_faces_batched, heatmaps_to_landmarks
+
+    g = torch.Generator().manual_seed(7)
+    images = torch.rand(3, 3, 90, 110, generator=g) * 255
+    boxes = torch.tensor([[10, 12, 70, 80], [-20, -5, 60, 50], [50, 40, 130, 120]],
+                         dtype=torch.float32)
+    hm = torch.randn(3, 68, 64, 64, generator=g)
+    want = [crop_faces_batched(images, *box_to_center_scale(boxes)),
+            heatmaps_to_landmarks(hm, *box_to_center_scale(boxes))]
+    cb = box_to_center_scale(boxes.to(card))
+    got = [crop_faces_batched(images.to(card), *cb), heatmaps_to_landmarks(hm.to(card), *cb)]
+    assert (got[0].cpu() - want[0]).abs().max().item() <= 1e-5
+    assert (got[1].cpu() - want[1]).abs().max().item() <= 1e-3

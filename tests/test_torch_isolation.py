@@ -1,6 +1,7 @@
 """The port stands alone: importing every s2v_torch module pulls in neither
-jax nor s2v_tpu, and its entry points refuse to run without a card unless
-the caller asks for the CPU."""
+jax nor s2v_tpu, no source of it imports Pillow (the card's machine has
+none), and its entry points refuse to run without a card unless the caller
+asks for the CPU."""
 
 import ast
 import pkgutil
@@ -27,6 +28,24 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 's2v_tpu', 'flax')]\n"
             "assert not bad, bad\n")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True)
+
+
+def test_port_sources_import_pillow_only_for_the_jpeg_degradation():
+    """Every import statement of the package, function-level ones included:
+    Pillow appears only inside the training data chain's JPEG step, which
+    ``jpeg_range=None`` skips (the inference path, the 3DMM alignment
+    included, has none)."""
+    found = []
+    for path in (REPO / "s2v_torch").rglob("*.py"):
+        tree = ast.parse(path.read_text())
+        owner = {id(n): fn.name for fn in ast.walk(tree) if isinstance(fn, ast.FunctionDef)
+                 for n in ast.walk(fn)}  # an import's innermost function wins
+        for n in ast.walk(tree):
+            mods = ([a.name for a in n.names] if isinstance(n, ast.Import)
+                    else [n.module or ""] if isinstance(n, ast.ImportFrom) else [])
+            if any(m.split(".")[0] == "PIL" for m in mods):
+                found.append((path.relative_to(REPO).as_posix(), owner.get(id(n))))
+    assert set(found) == {("s2v_torch/prep/degradations.py", "add_jpg_compression")}, found
 
 
 def test_chip_smoke_imports_neither_jax_nor_the_jax_package():
