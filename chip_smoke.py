@@ -34,27 +34,44 @@ result line:
    heatmaps' scale), at least 90% of them; crops within one gray level;
    coefficients within 1e-4 of their scale; stabilised frames as the slim
    slice's.
-5. slice: the chained main path at full width, random weights from a fixed
+5. retina reference: RetinaFace-R50 at full width on the card and on the
+   CPU, f32, on two 256^2 frames and one 1024^2 frame: loc, conf and
+   landms within 1e-4 of their scale, the best box and landmarks within
+   1e-2 and 5e-2 px where the top-2 score margin exceeds twice the
+   measured score difference (every frame must qualify), every frame
+   valid; then the slim Step-5 enhancer and the slim final hook without
+   landmarks (RetinaFace cfg_mnet detecting) on both, within one gray
+   level, every frame valid.
+6. slice: the chained main path in the default configuration
+   (``reuse_detections=False``) at full width, random weights from a fixed
    seed: 8 synthetic 512x512 frames -> ``extract_landmarks`` (boxes kept)
    -> ``ffhq_crop`` -> ``extract_landmarks`` on the crops ->
-   ``extract_coeffs`` -> ``stabilize`` -> ``melspectrogram`` (0.4 s of
-   synthetic speech) -> ``synthesize`` with the final hook, S3FD (VGG16),
-   FAN (2DFAN4), ReconNet (ResNet50), DNet, ENet/LNet, GPEN-BFR-2048,
-   ParseNet and RealESRNet x2 at their production widths. Random S3FD
-   weights find no face, so the face-class bias of its stride-4 head is
-   raised by 20 (every frame then has a box); where a step's geometry comes
-   from landmarks (the FFHQ crop, the 3DMM alignment, the reference faces,
-   the final stage) synthetic ones stand in, with a synthetic lm3d and a
-   zero expression. The launch counts are reset just before this run and
-   read just after; each kernel must have run, 38 and 27 times per frame
-   (K2 not at all). Per step: synchronised wall ms and, from one more run
-   with each step under its own torch.profiler session, device ms and the
-   top kernels.
-6. train reference: one R1 d_step, one g_step and one plain d_step of
+   ``extract_coeffs`` -> ``stabilize`` -> ``enhance_reference`` (Step 5:
+   RetinaFace + ParseNet at 512^2, ``face_enhance=False``) ->
+   ``melspectrogram`` (0.4 s of synthetic speech) -> ``synthesize`` with
+   the final hook (RetinaFace on the bilinear-2x 1024^2 frames), S3FD
+   (VGG16), FAN (2DFAN4), ReconNet (ResNet50), DNet, RetinaFace-R50,
+   ENet/LNet, GPEN-BFR-2048, ParseNet and RealESRNet x2 at their
+   production widths. Random detector weights find no face, so the
+   face-class bias of S3FD's stride-4 head is raised by 20 and RetinaFace's
+   level-2 face logit by 4 (``with_face_logit``); every frame must have a
+   valid face in Step 5 and in the final stage. ParseNet's skin logit is
+   raised (``with_face_mask``, here and in the slim phases) so the whole
+   crop is pasted back. Where a step's geometry
+   comes from landmarks (the FFHQ crop, the 3DMM alignment, the reference
+   faces) synthetic ones stand in, with a synthetic lm3d and a zero
+   expression. The launch counts are reset just before this run and read
+   just after; each kernel must have run, 38 and 27 times per frame (K2
+   not at all). Per step: synchronised wall ms (Step 5 split into
+   detection, warp + parse, paste + composite) and, from one more run with
+   each step under its own torch.profiler session, device ms and the top
+   kernels; the final stage's RetinaFace pass timed alone (CUDA events and a
+   synchronised host clock), so nothing synchronises inside the final stage.
+7. train reference: one R1 d_step, one g_step and one plain d_step of
    ``s2v_torch.train.gan.make_gan_trainer`` at slim widths on the card and
    on the CPU from the same weights and batch; metrics and every parameter
    gradient must agree.
-7. train: GPEN-BFR-512 (FullGenerator and Discriminator at full width,
+8. train: GPEN-BFR-512 (FullGenerator and Discriminator at full width,
    random weights from a fixed seed), batch 4 at 512^2 from
    ``face_batches`` over 8 synthetic faces, step pairs 0-16 (R1 at 0 and
    16), f32. The launch counts are reset just before and read just after;
@@ -140,6 +157,17 @@ def event_ms(torch, fn, iters=10, warmup=2):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def wall_ms(torch, fn, iters=5):
+    """Host ms per synchronised call of ``fn``, after one warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / iters
 
 
 def bound_ms(nbytes, flops):
@@ -371,10 +399,34 @@ def train_kernel_cases(torch, g, tol):
     return cases
 
 
+def with_face_logit(torch, retina, bias):
+    """Random RetinaFace weights score every anchor near 0.5, under the 0.9
+    threshold: the face logit of the level-2 anchors (``ClassHead.2``
+    channels 1 and 3, the class pairs sit per anchor; boxes of 256 and 512
+    px) is raised by ``bias`` and that head's weights scaled by 10, so the
+    anchors' logits spread apart and the argmax has a margin."""
+    with torch.no_grad():
+        head = retina.ClassHead[2].conv1x1
+        head.weight *= 10.0
+        head.bias[[1, 3]] += bias
+    return retina
+
+
+def with_face_mask(torch, parsenet, bias=1.0):
+    """Random ParseNet logits vary by about 0.2 and mostly pick classes the
+    blending colormap maps to 0, so little or nothing would be pasted: the
+    skin class's logit (``out_mask_conv`` channel 1, colormap 255) is raised
+    by ``bias``, and the whole crop is face."""
+    with torch.no_grad():
+        parsenet.out_mask_conv.conv2d.bias[1] += bias
+    return parsenet
+
+
 def slim_models(torch):
     from s2v_torch.models.enet import ENet
     from s2v_torch.models.gpen import FullGenerator
     from s2v_torch.models.parsenet import ParseNet
+    from s2v_torch.models.retinaface import retinaface_mnet
     from s2v_torch.models.rrdbnet import RRDBNet
 
     with torch.random.fork_rng(devices=[]):
@@ -383,38 +435,57 @@ def slim_models(torch):
                               lnet_base_nc=8, lnet_max_nc=32),
                     facegan=FullGenerator(size=64, narrow=0.25, channel_multiplier=0.5,
                                           style_dim=64, n_mlp=2),
-                    parsenet=ParseNet(base_ch=16, max_ch=32, min_ch=8, res_depth=2),
-                    srmodel=RRDBNet(scale=2, num_feat=16, num_block=2, num_grow_ch=8))
+                    parsenet=with_face_mask(torch, ParseNet(base_ch=16, max_ch=32, min_ch=8,
+                                                            res_depth=2)),
+                    srmodel=RRDBNet(scale=2, num_feat=16, num_block=2, num_grow_ch=8),
+                    retinaface=with_face_logit(torch, retinaface_mnet(), 4.0))
 
 
 def full_models(torch):
     from s2v_torch.models.enet import ENet
     from s2v_torch.models.gpen import FullGenerator
     from s2v_torch.models.parsenet import ParseNet
+    from s2v_torch.models.retinaface import RetinaFace
     from s2v_torch.models.rrdbnet import RRDBNet
 
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(0)
         return dict(enet=ENet(), facegan=FullGenerator(size=2048),
-                    parsenet=ParseNet(),
-                    srmodel=RRDBNet(scale=2, num_feat=32, num_block=23, num_grow_ch=32))
+                    parsenet=with_face_mask(torch, ParseNet()),
+                    srmodel=RRDBNet(scale=2, num_feat=32, num_block=23, num_grow_ch=32),
+                    retinaface=with_face_logit(torch, RetinaFace(), 4.0))
 
 
-def make_pipeline(models, in_size, dtype, parse_size, device, batch=16, steps=None):
+def make_pipeline(models, in_size, dtype, parse_size, device, batch=16, steps=None,
+                  reuse=True):
     """The Step 6 pipeline with the final hook; ``steps`` adds the Step 1-3
-    models (with the synthetic lm3d and a zero expression)."""
-    from s2v_torch.pipeline.enhance import FaceEnhancer, final_enhancer_hook
+    models (with the synthetic lm3d and a zero expression). With ``reuse``
+    the final stage takes the Step-1 landmarks (model.reuse_detections);
+    without, the pipeline runs the default configuration: RetinaFace in the
+    final stage and Step 5 (GPEN-BFR-512's enhancer at 512^2 with
+    face_enhance=False, which runs no GPEN and so is built without one,
+    sharing RetinaFace and ParseNet with the final stage as cli.py does).
+    Returns (pipeline, final hook, final enhancer, Step-5 enhancer or None)."""
+    from s2v_torch.pipeline.enhance import (FaceEnhancer, final_enhancer_hook,
+                                            reference_enhancer_hook)
     from s2v_torch.pipeline.inference import LipSyncPipeline, PipelineModels
     from s2v_torch.utils.config import InferenceConfig, ModelConfig, PipelineConfig
 
-    final = FaceEnhancer({k: models[k] for k in ("facegan", "parsenet", "srmodel")},
-                         in_size=in_size, dtype=dtype, parse_size=parse_size, device=device)
-    cfg = PipelineConfig(model=ModelConfig(dtype=dtype, reuse_detections=True),
+    names = ("facegan", "parsenet", "srmodel") + (() if reuse else ("retinaface",))
+    final = FaceEnhancer({k: models[k] for k in names}, in_size=in_size, dtype=dtype,
+                         parse_size=parse_size, device=device)
+    ref = None if reuse else FaceEnhancer(
+        {k: models[k] for k in ("retinaface", "parsenet")}, in_size=512, dtype=dtype,
+        parse_size=parse_size, device=device)
+    cfg = PipelineConfig(model=ModelConfig(dtype=dtype, reuse_detections=reuse),
                          infer=InferenceConfig(lnet_batch_size=batch))
     hook = final_enhancer_hook(final)
     extra = {} if steps is None else dict(steps, lm3d=LM3D, expression=np.zeros(64, np.float32))
-    return LipSyncPipeline(cfg, PipelineModels(enet=models["enet"], final_enhancer=hook,
-                                               **extra), device=device), hook
+    if ref is not None:
+        extra["ref_enhancer"] = reference_enhancer_hook(ref)
+    pipe = LipSyncPipeline(cfg, PipelineModels(enet=models["enet"], final_enhancer=hook,
+                                               **extra), device=device)
+    return pipe, hook, final, ref
 
 
 # a synthetic 5-point lm3d (the BFM file is not in the repo), as
@@ -474,17 +545,122 @@ def phase_reference(torch):
     x = clip_inputs(6, 96, 112, 0.35, seed=3)
     outs = {}
     for device in ("cpu", "cuda"):
-        pipe, _ = make_pipeline(copy.deepcopy(models), 64, "float32", 128, device, batch=4)
+        pipe = make_pipeline(copy.deepcopy(models), 64, "float32", 128, device, batch=4)[0]
         outs[device] = run_slice(torch, pipe, x, device)
-    d = np.abs(outs["cuda"].astype(np.int32) - outs["cpu"].astype(np.int32))
+    return frames_agree("reference: slim slice card vs CPU", outs["cuda"], outs["cpu"],
+                        (6, 192, 224, 3))
+
+
+def frames_agree(what, got, want, shape):
+    """uint8 frames within one gray level: at most 0.1% of subpixels off by
+    more than 1, a mean difference under 0.01, the expected shape."""
+    d = np.abs(got.astype(np.int32) - want.astype(np.int32))
     share = float((d > 1).mean())
-    ok = outs["cuda"].shape == (6, 192, 224, 3) and share <= 1e-3 and d.mean() < 0.01
-    print(f"reference: slim slice card vs CPU, output {outs['cuda'].shape}: max diff "
-          f"{d.max()}, share > 1 gray level {share:.2e} (tol 1e-3), mean {d.mean():.4f} "
-          f"(tol 0.01) {'ok' if ok else 'FAIL'}")
+    ok = got.shape == shape and share <= 1e-3 and d.mean() < 0.01
+    print(f"{what}, output {got.shape}: max diff {d.max()}, share > 1 gray level "
+          f"{share:.2e} (tol 1e-3), mean {d.mean():.4f} (tol 0.01) {'ok' if ok else 'FAIL'}")
     if not ok:
-        fail("slim slice on the card disagrees with the CPU")
+        fail(f"{what}: the card disagrees with the CPU")
     return dict(max_diff=int(d.max()), share_over_1=share, mean=float(d.mean()))
+
+
+def record_valid(enhancer, sink):
+    """Wrap ``enhancer._detect`` so each call's input and valid flags land
+    in ``sink`` (on the device: reading them here would synchronise)."""
+    detect = enhancer._detect
+
+    def run(x):
+        lms, small, valid = detect(x)
+        sink.append((x, valid))
+        return lms, small, valid
+
+    enhancer._detect = run
+
+
+def valid_count(sink):
+    return int(sum(int(v.sum()) for _, v in sink)), int(sum(len(v) for _, v in sink))
+
+
+def retina_outputs(torch, model, frames, dev):
+    """RetinaFace on RGB uint8 frames as the enhancer feeds it, f32 without
+    TF32; (network outputs, detect_faces) on the host."""
+    from s2v_torch.device import full_f32
+    from s2v_torch.models.retinaface import RETINA_MEAN, detect_faces
+
+    x = torch.as_tensor(frames, device=dev).permute(0, 3, 1, 2).float()
+    mean = torch.tensor(RETINA_MEAN, device=dev).view(1, 3, 1, 1)
+    with torch.no_grad(), full_f32():
+        outs = model.to(dev)(x.flip(1) - mean)
+        det = detect_faces(outs, frames.shape[1:3])
+    return [o.cpu() for o in outs], [d.cpu() for d in det]
+
+
+def phase_retina_reference(torch):
+    """RetinaFace-R50 at full width on the card against the CPU, f32, on two
+    256^2 frames (Step 5's size) and one 1024^2 frame (the final stage's):
+    loc, conf and landms within 1e-4 of their scale; the best box and
+    landmarks where the top-2 margin of the face score exceeds twice the
+    measured score difference (every frame must qualify), every frame
+    valid. Then the slim Step-5 enhancer and the slim final hook without
+    landmarks (RetinaFace cfg_mnet detecting), card vs CPU, every frame
+    valid."""
+    from s2v_torch.models.retinaface import RetinaFace
+    from s2v_torch.pipeline.enhance import (FaceEnhancer, final_enhancer_hook,
+                                            reference_enhancer_hook)
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(5)
+        retina = with_face_logit(torch, RetinaFace(), 4.0).eval()
+    res = {}
+    for size, n in ((256, 2), (1024, 1)):
+        frames = clip_inputs(n, size, size, 0.1, seed=5)["frames"]
+        (cpu, cpu_det), (card, card_det) = [retina_outputs(torch, retina, frames, d)
+                                            for d in ("cpu", "cuda")]
+        rel = max((a - b).abs().max().item() / max(1.0, b.abs().max().item())
+                  for a, b in zip(card, cpu))
+        top = cpu[1][..., 1].topk(2, dim=1).values
+        score_diff = (card[1][..., 1] - cpu[1][..., 1]).abs().max().item()
+        held = ((top[:, 0] - top[:, 1]) > 2 * score_diff).numpy()
+        box_px = (card_det[0] - cpu_det[0]).abs()[held].max().item() if held.any() else 0.0
+        lm_px = (card_det[1] - cpu_det[1]).abs()[held].max().item() if held.any() else 0.0
+        valid = int(card_det[2].sum()), int(cpu_det[2].sum())
+        ok = (rel <= 1e-4 and held.all() and box_px <= 1e-2 and lm_px <= 5e-2
+              and valid == (n, n))
+        print(f"retina reference: RetinaFace-R50 {n}x{size}^2 card vs CPU, f32: outputs "
+              f"{rel:.2e} of scale (tol 1e-4); score diff {score_diff:.1e}, top-2 margins "
+              f"{', '.join(f'{m:.1e}' for m in (top[:, 0] - top[:, 1]).tolist())}; boxes "
+              f"{box_px:.2e} px (tol 1e-2), landmarks {lm_px:.2e} px (tol 5e-2) over "
+              f"{int(held.sum())}/{n} frames; valid card {valid[0]}/{n}, CPU {valid[1]}/{n} "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"retina reference: RetinaFace-R50 at {size}^2 on the card disagrees with the CPU")
+        res[size] = dict(outputs_rel=rel, score_diff=score_diff, held=int(held.sum()),
+                         box_px=box_px, lm_px=lm_px, valid=valid)
+
+    models = slim_models(torch)
+    stab = clip_inputs(4, 256, 256, 0.1, seed=6)["frames"]
+    x = clip_inputs(4, 96, 112, 0.1, seed=7)
+    outs, valid = {}, {}
+    for dev in ("cpu", "cuda"):
+        m = copy.deepcopy(models)
+        ref = FaceEnhancer({k: m[k] for k in ("retinaface", "parsenet")}, in_size=64,
+                           dtype="float32", parse_size=128, device=dev)
+        final = FaceEnhancer({k: m[k] for k in ("retinaface", "facegan", "parsenet", "srmodel")},
+                             in_size=64, dtype="float32", parse_size=128, device=dev)
+        valid[dev] = ([], [])
+        record_valid(ref, valid[dev][0])
+        record_valid(final, valid[dev][1])
+        outs[dev] = (reference_enhancer_hook(ref)(stab).cpu().numpy(),
+                     final_enhancer_hook(final)(x["frames"], x["boxes"]).cpu().numpy())
+    for i, (what, shape) in enumerate((("Step-5 enhancer", (4, 256, 256, 3)),
+                                       ("final hook, no landmarks", (4, 192, 224, 3)))):
+        counts = [valid_count(valid[d][i])[0] for d in ("cuda", "cpu")]
+        res[what] = dict(frames_agree(f"retina reference: slim {what} card vs CPU "
+                                      f"(valid card {counts[0]}/4, CPU {counts[1]}/4)",
+                                      outs["cuda"][i], outs["cpu"][i], shape), valid=counts)
+        if counts != [4, 4]:
+            fail(f"retina reference: slim {what}: not every frame valid")
+    return res
 
 
 def decode_margins(hm):
@@ -594,11 +770,13 @@ def phase_steps_reference(torch):
 
 
 class StepClock:
-    """Times the chained run's steps: synchronised wall ms or, with
-    ``profile``, each step under its own torch.profiler session (device ms
-    and kernel rows)."""
+    """Times the chained run's steps, summing over calls of one name:
+    synchronised wall ms or, with ``profile`` (a set of step names), each of
+    those steps under its own torch.profiler session (device ms and kernel
+    rows); other names then pass untimed, so a profiled step may hold a
+    timed one but not another profiled one."""
 
-    def __init__(self, torch, profile=False):
+    def __init__(self, torch, profile=None):
         self.torch, self.profile = torch, profile
         self.ms, self.device_ms, self.rows = {}, {}, {}
 
@@ -607,25 +785,41 @@ class StepClock:
         from torch.profiler import ProfilerActivity, profile
 
         torch = self.torch
+        if self.profile is not None and name not in self.profile:
+            yield
+            return
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        if self.profile:
+        if self.profile is not None:
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                 yield
                 torch.cuda.synchronize()
-            self.rows[name] = device_rows(prof)
-            self.device_ms[name] = sum(ms for _, _, ms in self.rows[name])
+            rows = device_rows(prof)
+            self.rows[name] = self.rows.get(name, []) + rows
+            self.device_ms[name] = self.device_ms.get(name, 0.0) + sum(ms for _, _, ms in rows)
         else:
             yield
             torch.cuda.synchronize()
-        self.ms[name] = (time.perf_counter() - t0) * 1e3
+        self.ms[name] = self.ms.get(name, 0.0) + (time.perf_counter() - t0) * 1e3
+
+
+def clock_methods(obj, clock_of, names):
+    """Wrap ``obj``'s methods ``{attr: step name}`` so every call runs inside
+    the step of the clock that ``clock_of()`` returns at that moment."""
+    for attr, name in names.items():
+        def run(*a, _fn=getattr(obj, attr), _name=name, **k):
+            with clock_of()(_name):
+                return _fn(*a, **k)
+        setattr(obj, attr, run)
 
 
 def run_chain(torch, pipe, x, clock):
-    """frames -> Steps 1-3 -> mel -> Step 6 with the final hook, the chain
-    ``LipSyncPipeline.run`` builds with Step 5 off. Landmark-driven geometry
-    takes the clip's synthetic landmarks (the random FAN's are noise).
-    ReconNet's share of extract_coeffs is timed by hooks on its module."""
+    """frames -> Steps 1-3 -> Step 5 -> mel -> Step 6 with the final hook,
+    the chain ``LipSyncPipeline.run`` builds in the default configuration
+    (RetinaFace locates the face in Step 5 and in the final stage).
+    Landmark-driven geometry (FFHQ crop, alignment, reference faces) takes
+    the clip's synthetic landmarks (the random FAN's are noise). ReconNet's
+    share of extract_coeffs is timed by hooks on its module."""
     from s2v_torch.audio import melspectrogram
 
     frames = x["frames"]
@@ -653,21 +847,24 @@ def run_chain(torch, pipe, x, clock):
             h.remove()
     with clock("dnet"):
         stab = pipe.stabilize(f256, semantic, device_out=True)
+    with clock("step5"):
+        enhanced, _ = pipe.enhance_reference(stab)
     with clock("mel"):
         mel = melspectrogram(torch.from_numpy(x["wav"]).cuda())
     with clock("synthesize"):
-        out = pipe.synthesize(stab, mel, frames_dev, coords, 25.0, boxes_full=boxes,
-                              lms_full=x["lms_full"], lms_stab=x["lms_stab"])
+        out = pipe.synthesize(enhanced, mel, frames_dev, coords, 25.0, boxes_full=boxes,
+                              lms_stab=x["lms_stab"])
     clock.ms["recon"] = sum(b - a for a, b in zip(recon_s[::2], recon_s[1::2])) * 1e3
     clock.ms["host_alignment"] = clock.ms["coeffs"] - clock.ms["recon"]
-    return out, dict(boxes=boxes, coords=coords, stab=stab, mel=mel, frames_dev=frames_dev,
-                     semantic=semantic)
+    return out, dict(boxes=boxes, coords=coords, stab=stab, enhanced=enhanced, mel=mel,
+                     frames_dev=frames_dev, semantic=semantic)
 
 
 # the Step 1-3 parts timed per frame; "coeffs" (host alignment + ReconNet)
 # is one profiled step
 STEPS = ("step1_sweep", "ffhq_crop", "crop_sweep", "host_alignment", "recon", "dnet")
-PROFILED = ("step1_sweep", "ffhq_crop", "crop_sweep", "coeffs", "dnet")
+STEP5 = ("step5_detect", "step5_warp_parse", "step5_paste")
+PROFILED = ("step1_sweep", "ffhq_crop", "crop_sweep", "coeffs", "dnet") + STEP5
 
 
 def phase_slice(torch, card):
@@ -677,16 +874,19 @@ def phase_slice(torch, card):
     t = time.perf_counter()
     models = full_models(torch)
     steps = steps_models(torch, slim=False, face_bias=20.0)
-    pipe, hook = make_pipeline(models, 2048, "bfloat16", 512, "cuda", steps=steps)
+    pipe, hook, final, ref = make_pipeline(models, 2048, "bfloat16", 512, "cuda", steps=steps,
+                                           reuse=False)
 
     def mparams(m):
         return f"{sum(p.numel() for p in m.parameters()) / 1e6:.1f}M"
 
     print(f"slice: built full-width models in {time.perf_counter() - t:.1f} s "
           f"(S3FD {mparams(steps['s3fd'])}, FAN {mparams(steps['fan'])}, ReconNet "
-          f"{mparams(steps['recon'])}, DNet {mparams(steps['dnet'])}, ENet "
-          f"{mparams(models['enet'])}, GPEN-BFR-2048 {mparams(models['facegan'])}, ParseNet "
-          f"{mparams(models['parsenet'])}, RRDBNet {mparams(models['srmodel'])} params)")
+          f"{mparams(steps['recon'])}, DNet {mparams(steps['dnet'])}, RetinaFace-R50 "
+          f"{mparams(models['retinaface'])}, ENet {mparams(models['enet'])}, GPEN-BFR-2048 "
+          f"{mparams(models['facegan'])}, ParseNet {mparams(models['parsenet'])}, RRDBNet "
+          f"{mparams(models['srmodel'])} params); default configuration "
+          f"(reuse_detections={pipe.cfg.model.reuse_detections})")
     x = clip_inputs(8, 512, 512, 0.4, seed=0)
 
     stages = {"enet_batch": [], "final": []}
@@ -703,13 +903,22 @@ def phase_slice(torch, card):
 
     pipe._step6 = timed(pipe._step6, "enet_batch")
     pipe.models.final_enhancer = timed(hook, "final")
+    detect = final._detect  # the final stage's RetinaFace pass, timed alone below
+    valid = {"step5": [], "final": []}
+    record_valid(ref, valid["step5"])
+    record_valid(final, valid["final"])  # no clock inside the final stage: no syncs
+    current = {}
+    clock_methods(ref, lambda: current["clock"], dict(
+        _detect="step5_detect", _faces_and_masks="step5_warp_parse",
+        _paste_composite="step5_paste"))
 
-    run_chain(torch, pipe, x, StepClock(torch))  # warm-up: cuDNN plans, allocator
-    for v in stages.values():
+    current["clock"] = StepClock(torch)
+    run_chain(torch, pipe, x, current["clock"])  # warm-up: cuDNN plans, allocator
+    for v in (*stages.values(), *valid.values()):
         v.clear()
     torch.cuda.reset_peak_memory_stats()
 
-    clock = StepClock(torch)
+    clock = current["clock"] = StepClock(torch)
     reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -718,26 +927,41 @@ def phase_slice(torch, card):
     total_ms = (time.perf_counter() - t0) * 1e3
     launches = launch_counts()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    run_stages = {k: list(v) for k, v in stages.items()}  # this run's, not the profiled run's
+    valid_counts = {k: valid_count(v) for k, v in valid.items()}
+    frame = valid["final"][-1][0]  # the final stage's last detection input
 
     n = num_mel_chunks(inter["mel"].shape[1], 25.0)
     nf = len(x["frames"])
     ok_shape = out.shape == (n, 1024, 1024, 3) and out.dtype == np.uint8
     std = float(out.astype(np.float32).std())
     stab = inter["stab"].cpu().numpy()
+    enhanced = inter["enhanced"].cpu().numpy()
     ok_steps = (inter["boxes"].shape == (nf, 4) and inter["semantic"].shape == (nf, 262)
                 and bool(np.isfinite(inter["semantic"]).all())
                 and stab.shape == (nf, 256, 256, 3) and stab.std() > 0)
+    step5_changed = float(np.abs(enhanced.astype(np.int32) - stab).mean())
+    ok_step5 = (enhanced.shape == stab.shape and enhanced.dtype == np.uint8
+                and step5_changed > 0 and valid_counts["step5"] == (nf, nf))
+    ok_final = valid_counts["final"] == (n, n)
     print(f"slice: Steps 1-3: boxes {inter['boxes'].shape}, FFHQ crop {inter['coords']}, "
           f"coefficients {inter['semantic'].shape}, stabilised {stab.shape} std "
-          f"{stab.std():.2f}; output {out.shape} {out.dtype}, std {std:.2f}, mel "
-          f"{tuple(inter['mel'].shape)}, {n} chunks; "
-          f"{'ok' if ok_shape and std > 0 and ok_steps else 'FAIL'}")
+          f"{stab.std():.2f}; Step 5: {enhanced.shape}, valid faces {valid_counts['step5'][0]} "
+          f"of {valid_counts['step5'][1]}, mean change {step5_changed:.2f} gray levels; final "
+          f"stage valid faces {valid_counts['final'][0]} of {valid_counts['final'][1]}; output "
+          f"{out.shape} {out.dtype}, std {std:.2f}, mel {tuple(inter['mel'].shape)}, {n} "
+          f"chunks; {'ok' if ok_shape and std > 0 and ok_steps and ok_step5 and ok_final else 'FAIL'}")
     if not ok_shape:
         fail(f"slice output {out.shape} {out.dtype}, want ({n}, 1024, 1024, 3) uint8")
     if not std > 0:
         fail("slice output is constant")
     if not ok_steps:
         fail("slice: a Step 1-3 output is malformed, constant or not finite")
+    if not ok_step5:
+        fail(f"slice: Step 5 found faces in {valid_counts['step5']} frames or left them as "
+             "they were")
+    if not ok_final:
+        fail(f"slice: the final stage found faces in {valid_counts['final']} frames")
     want = {"fused_act": 38 * n, "fused_act_bwd": 0, "upfirdn2d": 27 * n}
     for name, count in launches.items():
         print(f"slice: {name} launches {count} on the main path "
@@ -747,38 +971,53 @@ def phase_slice(torch, card):
         elif count != want[name]:
             fail(f"{name} launched {count} times, expected {want[name]}")
 
-    prof = StepClock(torch, profile=True)  # a third run, each step profiled
+    # a third run, each step profiled (Step 5 by its parts)
+    prof = current["clock"] = StepClock(torch, profile=set(PROFILED) | {"synthesize"})
     torch.cuda.synchronize()
     run_chain(torch, pipe, x, prof)
     steps_wall = sum(clock.ms[k] for k in STEPS)
-    steps_dev = sum(prof.device_ms[k] for k in PROFILED)
-    print(f"slice: Steps 1-3 per frame ({nf} frames), wall / device ms; {card}")
+    steps_dev = sum(prof.device_ms[k] for k in PROFILED if k not in STEP5)
+    print(f"slice: Steps 1-3 and 5 per frame ({nf} frames), wall / device ms; {card}")
     # extract_coeffs' device work is ReconNet's; the alignment runs on the host
     step_dev = dict(prof.device_ms, host_alignment=0.0, recon=prof.device_ms["coeffs"])
-    for k in STEPS:
-        print(f"  {k:15s} {clock.ms[k] / nf:8.2f} / {step_dev[k] / nf:.2f}")
+    step_dev["step5"] = sum(prof.device_ms[k] for k in STEP5)
+    for k in STEPS + ("step5",) + STEP5:
+        print(f"  {k:16s} {clock.ms[k] / nf:8.2f} / {step_dev[k] / nf:.2f}")
     print(f"  Steps 1-3 {steps_wall:.1f} ms wall, {steps_dev:.1f} ms device, busy "
-          f"{100 * steps_dev / steps_wall:.1f}% of the unprofiled wall")
+          f"{100 * steps_dev / steps_wall:.1f}% of the unprofiled wall; Step 5 "
+          f"{clock.ms['step5']:.1f} ms wall, {step_dev['step5']:.1f} ms device")
     merged = {}
     for name in PROFILED:
         for key, calls, ms in prof.rows[name]:
             c, m = merged.get(key, (0, 0.0))
             merged[key] = (c + calls, m + ms)
     top = sorted(merged.items(), key=lambda kv: -kv[1][1])[:12]
-    print(f"profile: Steps 1-3 ({nf} frames at {x['frames'].shape[1]}x{x['frames'].shape[2]}), "
-          f"top kernels by device ms; {card}")
+    print(f"profile: Steps 1-3 and 5 ({nf} frames at {x['frames'].shape[1]}x"
+          f"{x['frames'].shape[2]}), top kernels by device ms; {card}")
     for key, (calls, ms) in top:
         print(f"  {ms:8.2f} ms {calls:5d}x  {key[:90]}")
+    # the final stage's RetinaFace pass on its last input (a 1024^2 frame),
+    # alone: device ms from CUDA events, wall ms synchronised
+    final_detect_dev = event_ms(torch, lambda: detect(frame)) / len(frame)
+    final_detect_wall = wall_ms(torch, lambda: detect(frame)) / len(frame)
     per = dict(step_wall_ms=dict(clock.ms), step_device_ms=step_dev,
                steps_wall_ms=steps_wall, steps_device_ms=steps_dev,
                steps_busy_share=steps_dev / steps_wall,
                steps_top=[dict(name=k[:90], calls=c, ms=m) for k, (c, m) in top],
-               enet_batch_ms=list(stages["enet_batch"]),
-               final_per_frame_ms=sum(stages["final"]) / n, total_ms=total_ms,
+               step5_wall_per_frame_ms=clock.ms["step5"] / nf,
+               step5_device_per_frame_ms=step_dev["step5"] / nf,
+               final_detect_wall_per_frame_ms=final_detect_wall,
+               final_detect_device_per_frame_ms=final_detect_dev,
+               final_detect_shape=list(frame.shape), valid=valid_counts,
+               enet_batch_ms=run_stages["enet_batch"],
+               final_per_frame_ms=sum(run_stages["final"]) / n, total_ms=total_ms,
                synthesize_ms=clock.ms["synthesize"], mel_ms=clock.ms["mel"],
                frames_per_s=n / total_ms * 1e3, peak_gib=peak)
+    print(f"slice: final stage RetinaFace on {tuple(frame.shape)} frames: "
+          f"{per['final_detect_wall_per_frame_ms']:.2f} ms/frame wall, "
+          f"{final_detect_dev:.2f} ms/frame device; {card}")
     print(f"slice: mel {per['mel_ms']:.1f} ms; ENet per batch "
-          f"{', '.join(f'{v:.1f}' for v in stages['enet_batch'])} ms; final stage "
+          f"{', '.join(f'{v:.1f}' for v in run_stages['enet_batch'])} ms; final stage "
           f"{per['final_per_frame_ms']:.1f} ms/frame; synthesize {per['synthesize_ms']:.1f} "
           f"ms; chain total {total_ms:.1f} ms ({per['frames_per_s']:.2f} frames/s); peak "
           f"{peak:.1f} GiB; {card}")
@@ -1052,6 +1291,7 @@ def main():
         return 1 if FAILURES else 0
     report["reference"] = phase_reference(torch)
     report["steps_reference"] = phase_steps_reference(torch)
+    report["retina_reference"] = phase_retina_reference(torch)
     launches, report["slice"] = phase_slice(torch, card)
     report["train_reference"] = phase_train_reference(torch)
     train_launches, report["train"] = phase_train(torch, card)

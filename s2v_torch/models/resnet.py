@@ -4,7 +4,8 @@ third_part/face3d/models/networks.py:69-104, 160-440), NCHW.
 
 Module names follow torchvision (``layer{n}.{b}``, ``downsample.0/1``) and
 networks.py (``backbone``, ``final_layers``), so the ``net_recon`` entry of
-``face3d_pretrain_epoch_20.pth`` loads as it is.
+``face3d_pretrain_epoch_20.pth`` loads as it is, and so does the ``body.*``
+part of ``RetinaFace-R50.pth`` (``return_stages``).
 """
 
 from __future__ import annotations
@@ -46,10 +47,13 @@ class Bottleneck(nn.Module):
 class ResNet(nn.Module):
     """Bottleneck ResNet (V1.5: the stride on the 3x3 conv) without its fc;
     ``layers=(3, 4, 6, 3)`` is ResNet50. Returns the average-pooled features
-    [B, 32 * base_planes, 1, 1]."""
+    [B, 32 * base_planes, 1, 1] or, with ``return_stages``, the list of every
+    stage's output (layer1..layer4: the maps RetinaFace's FPN taps)."""
 
-    def __init__(self, layers: Sequence[int] = (3, 4, 6, 3), base_planes: int = 64):
+    def __init__(self, layers: Sequence[int] = (3, 4, 6, 3), base_planes: int = 64,
+                 return_stages: bool = False):
         super().__init__()
+        self.return_stages = return_stages
         self.conv1 = nn.Conv2d(3, base_planes, 7, 2, 3, bias=False)
         self.bn1 = nn.BatchNorm2d(base_planes)
         self.maxpool = nn.MaxPool2d(3, 2, 1)  # pads with -inf
@@ -68,8 +72,12 @@ class ResNet(nn.Module):
 
     def forward(self, x):
         x = self.maxpool(F.relu(self.bn1(self.conv1(x))))
+        stages = []
         for stage in range(self.n_stages):
             x = getattr(self, f"layer{stage + 1}")(x)
+            stages.append(x)
+        if self.return_stages:
+            return stages
         return x.mean(dim=(2, 3), keepdim=True)  # AdaptiveAvgPool2d(1)
 
 

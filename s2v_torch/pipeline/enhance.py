@@ -1,15 +1,21 @@
-"""GPEN face enhancement, final-stage configuration (reference:
-third_part/GPEN/face_enhancement.py:48-193 + align_faces.py).
+"""GPEN face enhancement (reference: third_part/GPEN/face_enhancement.py:
+48-193 + align_faces.py), in the two configurations the pipeline runs:
 
-The port covers the configuration Step 6 hands its frames to: RealESRNet
-(RRDBNet at its ``scale``) super-resolves the full frame; the face is located by
-5-point landmarks supplied by the caller (config ``model.reuse_detections``:
-the pipeline's own 68-point sweeps, mapped by ``lm68_to_lm5``); a umeyama
-similarity warps the bilinear-upscaled frame to the ``in_size`` crop;
-GPEN enhances it; ParseNet's face mask, border-zeroed and double-blurred,
-pastes the enhanced face back over the SR frame through the inverse warp.
-RetinaFace detection and the non-SR composites (default and Laplacian
-blend) are not ported yet.
+- Step 5, the reference enhancer (``in_size`` 512, ``face_enhance=False``):
+  GPEN is not run; the warped crop itself is parsed and pasted back with the
+  default double-alpha composite over the original frame.
+- The final stage (GPEN-BFR-2048 with RealESRNet x2): RRDBNet super-resolves
+  the full frame, the face is located on the bilinear-2x frame, GPEN
+  enhances the crop and the face is composited over the SR frame.
+
+Per frame: RetinaFace finds the best face and its 5 landmarks (or the
+caller supplies them: config ``model.reuse_detections``, the pipeline's
+68-point sweeps mapped by ``lm68_to_lm5``); a closed-form umeyama
+similarity warps the frame to the ``in_size`` crop; ParseNet's face mask,
+border-zeroed and double-blurred, pastes the face back through the inverse
+warp. A frame whose best face scores under ``threshold`` keeps its
+original (or SR) pixels. The Laplacian-blend composites (``possion_blending``
+without SR) are not ported.
 
 Public layout as s2v_tpu: NHWC uint8 frames, [N, 5, 2] landmarks in pre-SR
 pixel coordinates, x1y1x2y2 boxes. Inside, NCHW float tensors on the device.
@@ -23,11 +29,12 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from s2v_torch.device import resolve_device
+from s2v_torch.device import full_f32, resolve_device
 from s2v_torch.models.parsenet import parse_mask
+from s2v_torch.models.retinaface import RETINA_MEAN, detect_faces
 from s2v_torch.ops.image import frames_to_nchw, resize_bilinear
 from s2v_torch.ops.warp import affine_warp
-from s2v_torch.pipeline.utils import mask_postprocess
+from s2v_torch.pipeline.utils import gaussian_blur, mask_postprocess
 
 # align_faces.py:14-22
 REFERENCE_FACIAL_POINTS = np.array(
@@ -111,23 +118,30 @@ def _to_u8(x: torch.Tensor) -> torch.Tensor:
 
 
 class FaceEnhancer:
-    """GPEN FaceEnhancement with RealESRNet SR and supplied landmarks.
+    """GPEN FaceEnhancement, with the surface of s2v_tpu's (``models``,
+    ``in_size``, ``threshold``, ``process_batch``).
 
-    models: dict of loaded modules — 'facegan' (FullGenerator), 'parsenet'
-    (ParseNet), 'srmodel' (RRDBNet, whose ``scale`` sets the output size).
+    models: dict of loaded modules: 'retinaface' (RetinaFace; may be left out
+    when every call supplies ``landmarks5``), 'parsenet' (ParseNet),
+    'facegan' (FullGenerator at ``in_size``; may be left out when every call
+    has ``face_enhance=False``, as Step 5's does: s2v_tpu builds it there
+    and never runs it) and 'srmodel' (RRDBNet, optional: when present, frames
+    are super-resolved by its ``scale`` and composited over the SR frame).
     ``dtype`` is the generators' compute dtype on the card (autocast);
-    warps, masks and composites stay f32.
+    RetinaFace runs in full f32 (no TF32), warps, masks and composites in f32.
     """
 
-    def __init__(self, models: dict, in_size: int = 512, dtype: str = "bfloat16",
-                 parse_size: int = 512, device=None):
+    def __init__(self, models: dict, in_size: int = 512, threshold: float = 0.9,
+                 dtype: str = "bfloat16", parse_size: int = 512, device=None):
         self.device = resolve_device(device)
-        self.models = {k: m.to(self.device).eval() for k, m in models.items()}
-        for name in ("facegan", "parsenet", "srmodel"):
-            if name not in self.models:
-                raise ValueError(f"FaceEnhancer needs a '{name}' model")
+        self.models = {k: m.to(self.device).eval() for k, m in models.items()
+                       if m is not None}
+        if "parsenet" not in self.models:
+            raise ValueError("FaceEnhancer needs a 'parsenet' model")
         self.in_size = in_size
-        self.sr_scale = self.models["srmodel"].scale
+        self.threshold = threshold
+        self.use_sr = "srmodel" in self.models
+        self.sr_scale = self.models["srmodel"].scale if self.use_sr else 1
         self.parse_size = int(parse_size)
         # 2048^2 crops are ~50 MB each in f32: small batches at that size
         self.chunk = 1 if in_size >= 1024 else 16
@@ -140,18 +154,37 @@ class FaceEnhancer:
         return torch.autocast(self.device.type, dtype=torch.bfloat16,
                               enabled=self.amp)
 
+    def _model(self, name: str, why: str) -> torch.nn.Module:
+        if name not in self.models:
+            raise ValueError(f"FaceEnhancer needs a '{name}' model {why}")
+        return self.models[name]
+
     @torch.no_grad()
-    def _enhance_chunk(self, up: torch.Tensor, img_sr: torch.Tensor,
-                       lms5: torch.Tensor, small: torch.Tensor) -> torch.Tensor:
-        """up: bilinear-upscaled frames, img_sr: SR frames, both [k, 3, H, W]
-        float 0..255; lms5 [k, 5, 2] in up's coordinates. Returns uint8
-        [k, 3, H, W]."""
+    def _detect(self, x: torch.Tensor):
+        """RetinaFace on frames [k, 3, H, W] RGB 0..255 (enhance.py
+        detect_tfms): (landmarks [k, 5, 2], small [k], valid [k]); ``small``
+        when the box's shorter side is under 100 px."""
+        retina = self._model("retinaface", "unless landmarks5 are supplied")
+        mean = torch.tensor(RETINA_MEAN, device=x.device).view(1, 3, 1, 1)
+        with full_f32():
+            boxes, landms, valid = detect_faces(retina(x.flip(1) - mean), x.shape[2:],
+                                                self.threshold)
+        small = torch.minimum(boxes[:, 2] - boxes[:, 0], boxes[:, 3] - boxes[:, 1]) < 100
+        return landms, small, valid
+
+    @torch.no_grad()
+    def _faces_and_masks(self, x: torch.Tensor, tfms: torch.Tensor, small: torch.Tensor,
+                         face_enhance: bool):
+        """Warp to the ``in_size`` crop, enhance it with GPEN when
+        ``face_enhance`` (else the crop is the face), parse the face mask.
+        Returns (face, tmp_mask, mask_sharp) [k, 3|1|1, s, s], f32."""
         s, ps = self.in_size, self.parse_size
-        tfms, _ = umeyama_similarity_batched(lms5, self.reference_5pts)
-        of = affine_warp(up, tfms, (s, s))
-        with self._autocast():
-            ef = self.models["facegan"](of / 255.0 * 2.0 - 1.0)
-        ef = torch.clamp((ef.float() + 1.0) / 2.0, 0.0, 1.0) * 255.0
+        ef = affine_warp(x, tfms, (s, s))
+        if face_enhance:
+            gan = self._model("facegan", "for face_enhance=True")
+            with self._autocast():
+                ef = gan(ef / 255.0 * 2.0 - 1.0)
+            ef = torch.clamp((ef.float() + 1.0) / 2.0, 0.0, 1.0) * 255.0
         # the mask is parsed from the unfiltered face (face_enhancement.py:145)
         efp = resize_bilinear(ef, (ps, ps))
         with self._autocast():
@@ -160,11 +193,23 @@ class FaceEnhancer:
         mask_sharp = resize_bilinear(mask_sharp, (512, 512))
         tmp_mask = resize_bilinear(mask_postprocess(mask_sharp, thres=26), (s, s))
         ef = torch.where(small[:, None, None, None], small_face_filter(ef), ef)
-        packed = affine_warp(
-            torch.cat([ef, tmp_mask, resize_bilinear(mask_sharp, (s, s))], dim=1),
-            tfms, up.shape[2:], inverse=True)
+        return ef, tmp_mask, resize_bilinear(mask_sharp, (s, s))
+
+    @torch.no_grad()
+    def _paste_composite(self, ef, tmp_mask, mask_sharp, tfms, base, valid, sr: bool):
+        """Inverse-warp the face and its masks to the frame (one 5-channel
+        warp) and composite over ``base`` [k, 3, H, W] (the SR frame with
+        ``sr``, else the original: the default double alpha, the sharp mask
+        blurred by GaussianBlur(9, 1.0)); frames not ``valid`` keep ``base``.
+        Returns uint8 [k, 3, H, W]."""
+        packed = affine_warp(torch.cat([ef, tmp_mask, mask_sharp], dim=1), tfms,
+                             base.shape[2:], inverse=True)
         tmp_img, full_mask = packed[:, :3], packed[:, 3:4]
-        return _to_u8(img_sr * (1.0 - full_mask) + tmp_img * full_mask)
+        out = base * (1.0 - full_mask) + tmp_img * full_mask
+        if not sr:  # face_enhancement.py:191-193
+            mask_sharp_w = gaussian_blur(packed[:, 4:5], 9, 1.0)
+            out = base * (1.0 - mask_sharp_w) + out * mask_sharp_w
+        return _to_u8(torch.where(valid[:, None, None, None], out, base))
 
     @torch.no_grad()
     def _super_resolve(self, x: torch.Tensor) -> torch.Tensor:
@@ -173,43 +218,80 @@ class FaceEnhancer:
         return (torch.clamp(out.float(), 0.0, 1.0) * 255.0).to(torch.uint8).float()
 
     @torch.no_grad()
-    def process_batch(self, frames, landmarks5, det_boxes=None) -> torch.Tensor:
-        """frames [N, H, W, 3] uint8 (numpy or tensor); landmarks5 [N, 5, 2]
-        in frame pixels; det_boxes [N, 4] x1y1x2y2 feed the small-face flag
-        (all faces large when absent). Returns [N, sH, sW, 3] uint8 on the
-        device."""
-        x = frames_to_nchw(frames, self.device)
+    def process_batch(self, frames, ori_frames=None, face_enhance: bool = True,
+                      possion_blending: bool = False, bboxes=None, landmarks5=None,
+                      det_boxes=None) -> torch.Tensor:
+        """s2v_tpu's FaceEnhancer.process_batch: frames [N, H, W, 3] uint8
+        (numpy or tensor). ``ori_frames`` is the paste base of the default
+        composite (the frames when None). ``landmarks5`` [N, 5, 2] in frame
+        pixels replace the RetinaFace pass (all frames then valid);
+        ``det_boxes`` [N, 4] x1y1x2y2 feed their small-face flag (all faces
+        large when absent). Under SR the composite is over the SR frame
+        whatever ``possion_blending`` says, and ``bboxes`` (y1, y2, x1, x2),
+        which only restrict the Laplacian blend's mask, are unused. Returns
+        [N, sH, sW, 3] uint8 on the device (s = the SR scale, or 1)."""
+        if possion_blending and not self.use_sr:
+            raise NotImplementedError(
+                "the Laplacian-blend composite (possion_blending without SR) needs "
+                "laplacian_pyramid_blend, which the port does not have yet (ROADMAP: "
+                "the mouth tail)")
+        x = _to_u8(frames_to_nchw(frames, self.device)).float()
         n, _, h, w = x.shape
+        ori = x if ori_frames is None else _to_u8(frames_to_nchw(ori_frames, self.device)).float()
         scale = float(self.sr_scale)
-        lms = torch.as_tensor(np.asarray(landmarks5, np.float32) * scale,
-                              device=self.device)
-        if det_boxes is not None:
-            bb = np.asarray(det_boxes, np.float32) * scale
-            small = np.minimum(bb[:, 2] - bb[:, 0], bb[:, 3] - bb[:, 1]) < 100
-        else:
-            small = np.zeros((n,), bool)
-        small = torch.as_tensor(small, device=self.device)
+        if landmarks5 is not None:
+            lms = torch.as_tensor(np.asarray(landmarks5, np.float32) * scale,
+                                  device=self.device)
+            if det_boxes is not None:
+                bb = np.asarray(det_boxes, np.float32) * scale
+                small = np.minimum(bb[:, 2] - bb[:, 0], bb[:, 3] - bb[:, 1]) < 100
+            else:
+                small = np.zeros((n,), bool)
+            small = torch.as_tensor(small, device=self.device)
+            valid = torch.ones((n,), dtype=torch.bool, device=self.device)
         out = []
         for i in range(0, n, self.chunk):
-            c = x[i:i + self.chunk]
-            up = _to_u8(resize_bilinear(c, (h * self.sr_scale, w * self.sr_scale)))
-            out.append(self._enhance_chunk(up.float(), self._super_resolve(c),
-                                           lms[i:i + self.chunk],
-                                           small[i:i + self.chunk]))
+            sl = slice(i, i + self.chunk)
+            c = x[sl]
+            if self.use_sr:
+                # SR the frame; locate and warp the face on the bilinear-2x
+                # frame (face_enhancement.py:103-106)
+                base = self._super_resolve(c)
+                c = _to_u8(resize_bilinear(c, base.shape[2:])).float()
+            else:
+                base = ori[sl]
+            if landmarks5 is None:
+                lms_c, small_c, valid_c = self._detect(c)
+            else:
+                lms_c, small_c, valid_c = lms[sl], small[sl], valid[sl]
+            tfms, _ = umeyama_similarity_batched(lms_c, self.reference_5pts)
+            faces = self._faces_and_masks(c, tfms, small_c, face_enhance)
+            out.append(self._paste_composite(*faces, tfms, base, valid_c, self.use_sr))
         return torch.cat(out).permute(0, 2, 3, 1)
 
 
-def final_enhancer_hook(enhancer: FaceEnhancer):
-    """The pipeline's ``final_enhancer`` hook: GPEN + RealESRNet x2 over a
-    batch of composited frames (cli.py's final_hook). The face box only
-    matters to the non-SR Laplacian composite, which this configuration
-    does not use."""
+def reference_enhancer_hook(enhancer: FaceEnhancer):
+    """The pipeline's ``ref_enhancer`` hook, Step 5 (cli.py:124-126): the
+    GPEN-BFR-512 enhancer with ``face_enhance=False`` over the stabilised
+    frames; ``landmarks5`` / ``det_boxes`` pass through
+    (``model.reuse_detections``)."""
 
-    def hook(frames, boxes_xyxy, landmarks5=None, det_boxes=None):
-        if landmarks5 is None:
-            raise ValueError("the port's final enhancer needs landmarks5 "
-                             "(config model.reuse_detections): RetinaFace is "
-                             "not ported yet")
-        return enhancer.process_batch(frames, landmarks5, det_boxes=det_boxes)
+    def hook(frames, **kw):
+        return enhancer.process_batch(frames, face_enhance=False, **kw)
+
+    return hook
+
+
+def final_enhancer_hook(enhancer: FaceEnhancer):
+    """The pipeline's ``final_enhancer`` hook (cli.py:156-162): GPEN-BFR-2048
+    (+ RealESRNet x2 when the enhancer has it) over a batch of composited
+    frames, with ``possion_blending`` and the face boxes as (y1, y2, x1, x2)
+    (they matter only to the non-SR Laplacian blend). Without landmarks the
+    enhancer locates the face with RetinaFace."""
+
+    def hook(frames, boxes_xyxy, **kw):
+        bb = np.asarray(boxes_xyxy)[:, [1, 3, 0, 2]]
+        return enhancer.process_batch(frames, face_enhance=True, possion_blending=True,
+                                      bboxes=bb, **kw)
 
     return hook

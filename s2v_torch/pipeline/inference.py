@@ -9,12 +9,17 @@ s2v_tpu/pipeline/inference.py ``LipSyncPipeline``):
   rebuilt in numpy) and ReconNet's 257 3DMM coefficients, batched.
 - Step 3: ``stabilize``: the 26-frame coefficient windows with the
   expression overwritten, then DNet.
-- Step 4 is ``s2v_torch.audio.melspectrogram``; Step 5 (the GPEN-512
-  reference enhancer) is not ported and stays off.
+- Step 4 is ``s2v_torch.audio.melspectrogram``.
+- Step 5: ``enhance_reference``: the ``ref_enhancer`` hook (GPEN-BFR-512's
+  enhancer with ``face_enhance=False``: RetinaFace, the warped crop parsed by
+  ParseNet and composited back) over the stabilised frames; under config
+  ``model.reuse_detections`` one landmark sweep of those frames replaces
+  its RetinaFace pass and serves Step 6's reference faces too.
 - Step 6: ``synthesize``: reference faces, ENet synthesis and paste-back,
   then the ``final_enhancer`` hook (GPEN-BFR-2048 + RealESRNet x2,
-  ``s2v_torch.pipeline.enhance``), which takes the Step-1 landmarks
-  (config ``model.reuse_detections``): its RetinaFace path is not ported.
+  ``s2v_torch.pipeline.enhance``), which locates the face with RetinaFace on
+  the bilinear-2x frame, or takes the Step-1 landmarks under
+  ``model.reuse_detections``.
 
 S3FD, FAN and ReconNet run in full f32 (no TF32); DNet and ENet under bf16
 autocast on the card when ``model.dtype`` is bfloat16. Public layout as
@@ -52,8 +57,10 @@ class PipelineModels:
 
     lm3d: [5, 3] standard 3D landmarks (``face3d_prep.load_lm3d``);
     expression: [64] template expression coefficients.
+    ref_enhancer(frames [N, 256, 256, 3] uint8, landmarks5=None,
+    det_boxes=None) -> [N, 256, 256, 3] uint8 (Step 5).
     final_enhancer(frames [B, H, W, 3] uint8, boxes [B, 4] x1y1x2y2,
-    landmarks5=[B, 5, 2], det_boxes=[B, 4]) -> [B, 2H, 2W, 3] uint8.
+    landmarks5=None, det_boxes=None) -> [B, 2H, 2W, 3] uint8.
     """
 
     s3fd: Optional[torch.nn.Module] = None
@@ -63,6 +70,7 @@ class PipelineModels:
     enet: Optional[torch.nn.Module] = None
     lm3d: Optional[np.ndarray] = None
     expression: Optional[np.ndarray] = None
+    ref_enhancer: Optional[Callable] = None
     final_enhancer: Optional[Callable] = None
 
 
@@ -284,6 +292,26 @@ class LipSyncPipeline:
         return out if device_out else out.cpu().numpy()
 
     # ------------------------------------------------------------------
+    # Step 5: reference enhancement
+    # ------------------------------------------------------------------
+
+    def enhance_reference(self, stabilized):
+        """Step 5 (inference.py:234-238; the body of s2v_tpu's ``run``
+        compute_enh): the ``ref_enhancer`` hook over the stabilised frames
+        [N, 256, 256, 3] uint8 (numpy or a device tensor). Under config
+        ``model.reuse_detections`` one S3FD + FAN sweep of those frames
+        supplies the hook's 5-point landmarks and boxes, and its landmarks
+        are returned for ``synthesize``'s ``lms_stab``. Returns (enhanced
+        frames [N, 256, 256, 3] uint8 on the device, landmarks or None)."""
+        self._require("ref_enhancer")
+        if not self.cfg.model.reuse_detections:
+            return self.models.ref_enhancer(stabilized), None
+        lms, boxes = self.extract_landmarks(stabilized, return_boxes=True)
+        enhanced = self.models.ref_enhancer(
+            stabilized, landmarks5=lm68_to_lm5(lms).astype(np.float32), det_boxes=boxes)
+        return enhanced, lms
+
+    # ------------------------------------------------------------------
     # Step 6: synthesis
     # ------------------------------------------------------------------
 
@@ -346,18 +374,13 @@ class LipSyncPipeline:
         mel [80, T]; full_frames [N, H, W, 3] uint8; coordinates (oy1, oy2,
         ox1, ox2) of the FFHQ crop. boxes_full [N, 4] x1y1x2y2 are the Step-1
         boxes (detected here when None); lms_full the Step-1 landmarks, which
-        the final enhancer takes under ``model.reuse_detections``; lms_stab
-        the landmarks of ``stabilized`` (swept here when None). Returns
-        [n_chunks, H', W', 3] uint8 with H' = 2H when the final enhancer
-        runs."""
+        the final enhancer takes under ``model.reuse_detections`` (else it
+        runs its own RetinaFace pass); lms_stab the landmarks of
+        ``stabilized`` (swept here when None). Returns [n_chunks, H', W', 3]
+        uint8 with H' = 2H when the final enhancer runs."""
         self._require("enet")
         cfg = self.cfg
-        if self.models.final_enhancer is not None and not (
-                cfg.model.reuse_detections and lms_full is not None):
-            raise NotImplementedError(
-                "the port's final enhancer takes the Step-1 landmarks "
-                "(model.reuse_detections with lms_full): its RetinaFace path "
-                "is not ported yet")
+        reuse = cfg.model.reuse_detections and lms_full is not None
         n_chunks = num_mel_chunks(mel.shape[1], fps)
         n_frames = min(len(stabilized), n_chunks)
         frames_t = full_frames[:n_frames]
@@ -376,8 +399,8 @@ class LipSyncPipeline:
         refs = self.build_reference_faces(
             stabilized[:n_frames], frames_dev, coordinates, boxes,
             None if lms_stab is None else np.asarray(lms_stab)[:n_frames])
-        lm5 = (None if lms_full is None
-               else lm68_to_lm5(np.asarray(lms_full)[:n_frames]).astype(np.float32))
+        lm5 = (lm68_to_lm5(np.asarray(lms_full)[:n_frames]).astype(np.float32)
+               if reuse else None)
         boxes_dev = torch.as_tensor(boxes.astype(np.float32), device=self.device)
 
         batch = cfg.infer.lnet_batch_size
@@ -393,7 +416,7 @@ class LipSyncPipeline:
             pasted = self._step6(full[ix], boxes_dev[ix], refs[ix], chunks[ix][:, None])
             pasted = pasted.permute(0, 2, 3, 1)  # NHWC uint8
             if self.models.final_enhancer is not None:
-                pasted = self.models.final_enhancer(
-                    pasted, boxes[idxs], landmarks5=lm5[idxs], det_boxes=boxes[idxs])
+                kw = dict(landmarks5=lm5[idxs], det_boxes=boxes[idxs]) if reuse else {}
+                pasted = self.models.final_enhancer(pasted, boxes[idxs], **kw)
             out.append(torch.as_tensor(pasted).cpu().numpy())
         return np.concatenate(out)

@@ -88,11 +88,19 @@ def _blur_matrix(size: int, ksize: int, sigma: float) -> np.ndarray:
     return m
 
 
+@functools.lru_cache(maxsize=None)
+def _blur_matrix_on(size: int, ksize: int, sigma: float, device: torch.device) -> torch.Tensor:
+    """``_blur_matrix`` on ``device``, copied there once: a copy of a
+    matrix (1 MB at 512) from pageable memory at every call would make the
+    host wait for the card's queue."""
+    return torch.from_numpy(_blur_matrix(size, ksize, sigma)).to(device)
+
+
 def gaussian_blur(x: torch.Tensor, ksize: int, sigma: float) -> torch.Tensor:
     """x [B, C, H, W] f32: vertical pass, then horizontal (cv2's order)."""
     h, w = x.shape[-2:]
-    mv = torch.from_numpy(_blur_matrix(h, ksize, sigma)).to(x.device)
-    mh = torch.from_numpy(_blur_matrix(w, ksize, sigma)).to(x.device)
+    mv = _blur_matrix_on(h, ksize, sigma, x.device)
+    mh = _blur_matrix_on(w, ksize, sigma, x.device)
     x = torch.einsum("ih,bchw->bciw", mv, x)
     return torch.einsum("jw,bchw->bchj", mh, x)
 

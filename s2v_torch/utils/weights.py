@@ -44,8 +44,11 @@ def fold_spectral_norm(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
 
 def load_reference(module: nn.Module, sd: Dict[str, torch.Tensor]) -> nn.Module:
     """Load a reference checkpoint's state_dict (strict), folding spectral
-    norm first."""
-    module.load_state_dict(fold_spectral_norm(sd))
+    norm first and dropping the ``module.`` prefix that DataParallel
+    checkpoints carry (``RetinaFace-R50.pth``; retinaface_detection.py
+    strips it too)."""
+    module.load_state_dict(fold_spectral_norm(
+        {k.removeprefix("module."): v for k, v in sd.items()}))
     return module
 
 
@@ -330,25 +333,30 @@ def fan_from_jax(variables) -> StateDict:
     return sd
 
 
-def recon_from_jax(variables) -> StateDict:
-    """s2v_tpu ReconNet variables -> ReconNet state_dict (the ``net_recon``
-    layout: torchvision ``backbone.*`` + ``final_layers.*``)."""
-    p, s = variables["params"], variables["batch_stats"]
-    bb, bs = p["backbone"], s["backbone"]
-    sd: StateDict = {}
-    _conv(bb["conv1"], "backbone.conv1", sd)
-    _bn(bb["bn1"], bs["bn1"], "backbone.bn1", sd)
+def _resnet(bb, bs, prefix: str, sd: StateDict) -> None:
+    """s2v_tpu ResNet (``layer{stage}_{block}`` trees) -> torchvision names
+    under ``prefix``."""
+    _conv(bb["conv1"], f"{prefix}.conv1", sd)
+    _bn(bb["bn1"], bs["bn1"], f"{prefix}.bn1", sd)
     for name, d in bb.items():
         if not name.startswith("layer"):
             continue
         stage, block = name[len("layer"):].split("_")
-        pre = f"backbone.layer{stage}.{block}"
+        pre = f"{prefix}.layer{stage}.{block}"
         for i in (1, 2, 3):
             _conv(d[f"conv{i}"], f"{pre}.conv{i}", sd)
             _bn(d[f"bn{i}"], bs[name][f"bn{i}"], f"{pre}.bn{i}", sd)
         if "downsample_conv" in d:
             _conv(d["downsample_conv"], f"{pre}.downsample.0", sd)
             _bn(d["downsample_bn"], bs[name]["downsample_bn"], f"{pre}.downsample.1", sd)
+
+
+def recon_from_jax(variables) -> StateDict:
+    """s2v_tpu ReconNet variables -> ReconNet state_dict (the ``net_recon``
+    layout: torchvision ``backbone.*`` + ``final_layers.*``)."""
+    p, s = variables["params"], variables["batch_stats"]
+    sd: StateDict = {}
+    _resnet(p["backbone"], s["backbone"], "backbone", sd)
     for name, d in p.items():
         if name.startswith("head"):
             _conv(d, f"final_layers.{name[len('head'):]}", sd)
@@ -400,4 +408,39 @@ def dnet_from_jax(variables) -> StateDict:
                     (_adain if part.startswith("norm") else _conv)(d, f"{pre}.{j}.{part}", sd)
         else:  # up*, jump*
             _norm_block(blk, pre, sd)
+    return sd
+
+
+def _conv_bn(p, s, prefix: str, sd: StateDict) -> None:
+    """s2v_tpu ConvBN {conv, bn} -> the reference's Sequential(conv, bn, ...)."""
+    _conv(p["conv"], f"{prefix}.0", sd)
+    _bn(p["bn"], s["bn"], f"{prefix}.1", sd)
+
+
+def retinaface_from_jax(variables) -> StateDict:
+    """s2v_tpu RetinaFace variables, either body (cfg_re50's ResNet50 or
+    cfg_mnet's MobileNetV1) -> RetinaFace state_dict: the inverse of
+    ``convert_retinaface`` / ``convert_retinaface_mnet``."""
+    p, s = variables["params"], variables["batch_stats"]
+    sd: StateDict = {}
+    bb, bs = p["body"], s["body"]
+    if "stage1_0" in bb:
+        for name, d in bb.items():
+            stage, block = name[len("stage"):].split("_")
+            pre = f"body.stage{stage}.{block}"
+            if "conv" in d:  # the stem's conv_bn
+                _conv_bn(d, bs[name], pre, sd)
+                continue
+            _conv(d["dw"], f"{pre}.0", sd)
+            _bn(d["dw_bn"], bs[name]["dw_bn"], f"{pre}.1", sd)
+            _conv(d["pw"], f"{pre}.3", sd)
+            _bn(d["pw_bn"], bs[name]["pw_bn"], f"{pre}.4", sd)
+    else:
+        _resnet(bb, bs, "body", sd)
+    for group in ("fpn", "ssh1", "ssh2", "ssh3"):
+        for name, d in p[group].items():
+            _conv_bn(d, s[group][name], f"{group}.{name}", sd)
+    for i in range(3):
+        for head in ("BboxHead", "ClassHead", "LandmarkHead"):
+            _conv(p[f"{head}{i}"], f"{head}.{i}.conv1x1", sd)
     return sd

@@ -330,3 +330,78 @@ def test_fan_crop_and_decode_on_the_card_match_the_cpu(card):
     got = [crop_faces_batched(images.to(card), *cb), heatmaps_to_landmarks(hm.to(card), *cb)]
     assert (got[0].cpu() - want[0]).abs().max().item() <= 1e-5
     assert (got[1].cpu() - want[1]).abs().max().item() <= 1e-3
+
+
+def _retinaface(backbone):
+    """RetinaFace with its level-2 face logit raised (``ClassHead.2``
+    channels 1 and 3 by 4, that head's weights scaled by 10), so random
+    weights find a face with a margin over the other anchors."""
+    from s2v_torch.models.retinaface import RetinaFace, retinaface_mnet
+
+    torch.manual_seed(8)
+    model = RetinaFace() if backbone == "re50" else retinaface_mnet()
+    with torch.no_grad():
+        model.ClassHead[2].conv1x1.weight *= 10.0
+        model.ClassHead[2].conv1x1.bias[[1, 3]] += 4.0
+    return model.eval()
+
+
+def _frames(n, h, w, seed):
+    g = torch.Generator().manual_seed(seed)
+    yy, xx = torch.meshgrid(torch.arange(h), torch.arange(w), indexing="ij")
+    base = torch.stack([xx * 255.0 / w, yy * 255.0 / h, (xx + yy) * 127.0 / (h + w)], -1)
+    return torch.clamp(base + torch.randn(n, h, w, 3, generator=g) * 20, 0, 255).to(torch.uint8)
+
+
+@pytest.mark.cuda
+def test_retinaface_on_the_card_matches_the_cpu(card):
+    """RetinaFace-R50 at full width on 256^2 frames, f32 without TF32:
+    outputs within 1e-4 of their scale; the best box and landmarks within
+    1e-2 px where the top-2 face-score margin exceeds twice the measured
+    score difference (every frame here)."""
+    from s2v_torch.models.retinaface import RETINA_MEAN, detect_faces
+
+    model = _retinaface("re50")
+    x = _frames(2, 256, 256, 9).permute(0, 3, 1, 2).float().flip(1)
+    x = x - torch.tensor(RETINA_MEAN).view(1, 3, 1, 1)
+    with torch.no_grad():
+        want = model(x)
+        got = [o.cpu() for o in model.to(card)(x.to(card))]
+    for a, ref in zip(got, want):
+        assert a.shape == ref.shape
+        assert (a - ref).abs().max().item() <= 1e-4 * max(1.0, ref.abs().max().item())
+    top = want[1][..., 1].topk(2, dim=1).values
+    assert ((top[:, 0] - top[:, 1]) > 2 * (got[1] - want[1]).abs().max()).all()
+    dw, dg = detect_faces(want, (256, 256)), detect_faces(got, (256, 256))
+    assert dw[2].all() and dg[2].all()
+    assert (dg[0] - dw[0]).abs().max().item() <= 1e-2
+    assert (dg[1] - dw[1]).abs().max().item() <= 1e-2
+
+
+@pytest.mark.cuda
+def test_step5_enhancer_on_the_card_matches_the_cpu(card):
+    """The Step-5 enhancer (``face_enhance=False``, the default composite,
+    RetinaFace cfg_mnet detecting) at a slim ParseNet, f32: within one gray
+    level (at most 0.1% of subpixels off by more than 1, a mean difference
+    under 0.01), a face in every frame."""
+    from s2v_torch.models.parsenet import ParseNet
+    from s2v_torch.pipeline.enhance import FaceEnhancer, reference_enhancer_hook
+
+    retina = _retinaface("mnet")
+    torch.manual_seed(10)
+    parsenet = ParseNet(base_ch=16, max_ch=32, min_ch=8, res_depth=2)
+    with torch.no_grad():  # the skin class everywhere: the whole crop is face
+        parsenet.out_mask_conv.conv2d.bias[1] += 1.0
+    frames = _frames(4, 256, 256, 11)
+    out = {}
+    for dev in ("cpu", card):
+        enh = FaceEnhancer({"retinaface": retina, "parsenet": parsenet}, in_size=64,
+                           dtype="float32", parse_size=128, device=dev)
+        with torch.no_grad():
+            _, _, valid = enh._detect(frames.to(dev).permute(0, 3, 1, 2).float())
+        assert valid.all()
+        out[str(dev)] = reference_enhancer_hook(enh)(frames).cpu()
+    d = (out["cuda"].int() - out["cpu"].int()).abs().float()
+    assert out["cuda"].shape == (4, 256, 256, 3) and out["cuda"].dtype == torch.uint8
+    assert (d > 1).float().mean().item() <= 1e-3 and d.mean().item() < 0.01
+    assert (out["cpu"] != frames).any()  # the crops went back through the masks

@@ -34,7 +34,10 @@ from s2v_torch.models import fan as t_fan
 from s2v_torch.models import s3fd as t_s3fd
 from s2v_torch.models.dnet import DNet as TDNet
 from s2v_torch.models.enet import ENet as TENet
+from s2v_torch.models.parsenet import ParseNet as TParseNet
 from s2v_torch.models.resnet import ReconNet as TReconNet
+from s2v_torch.models.rrdbnet import RRDBNet as TRRDBNet
+from s2v_torch.pipeline import enhance as t_enh
 from s2v_torch.pipeline import inference as t_inf
 from s2v_torch.utils import config as t_cfg
 from s2v_torch.utils import weights as TW
@@ -46,7 +49,7 @@ from s2v_tpu.models.s3fd import S3FD
 from s2v_tpu.utils.config import PipelineConfig, override
 from test_pipeline_e2e import synthetic_landmarks
 from test_torch_models import load
-from test_torch_pipeline import ENET_KW, assert_close_frames
+from test_torch_pipeline import ENET_KW, PARSE_KW, RRDB_KW, assert_close_frames
 from torch_parity import random_variables
 
 N, H, W = 4, 256, 256
@@ -254,10 +257,17 @@ def test_missing_face_and_missing_landmarks_raise(pipes):
             tpipe.extract_landmarks(frames)
     finally:
         tpipe.models.s3fd = real
+    # reuse_detections without Step-1 landmarks: the final enhancer gets none
+    # and must detect, which one without RetinaFace refuses
+    final = t_enh.FaceEnhancer({"parsenet": TParseNet(**PARSE_KW), "srmodel": TRRDBNet(**RRDB_KW)},
+                               in_size=64, dtype="float32", parse_size=64, device="cpu")
     hooked = t_inf.LipSyncPipeline(
         t_cfg.PipelineConfig(model=t_cfg.ModelConfig(reuse_detections=True)),
-        t_inf.PipelineModels(enet=tpipe.models.enet, final_enhancer=lambda *a, **k: None),
+        t_inf.PipelineModels(enet=tpipe.models.enet,
+                             final_enhancer=t_enh.final_enhancer_hook(final)),
         device="cpu")
-    with pytest.raises(NotImplementedError, match="RetinaFace"):
+    with pytest.raises(ValueError, match="'retinaface' model unless landmarks5"):
         hooked.synthesize(np.zeros((1, 256, 256, 3), np.uint8), torch.zeros(80, 40),
-                          np.zeros((1, 64, 64, 3), np.uint8), (0, 64, 0, 64), 25.0)
+                          np.zeros((1, 64, 64, 3), np.uint8), (0, 64, 0, 64), 25.0,
+                          boxes_full=np.asarray([[8, 8, 56, 56]], np.float32),
+                          lms_stab=synthetic_landmarks(1, 256, 256))
