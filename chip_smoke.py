@@ -42,36 +42,58 @@ result line:
    valid; then the slim Step-5 enhancer and the slim final hook without
    landmarks (RetinaFace cfg_mnet detecting) on both, within one gray
    level, every frame valid.
-6. slice: the chained main path in the default configuration
+6. mouth reference: the Step-6 mouth tail at slim widths on the card and on
+   the CPU from the same weights, f32: GFPGANv1Clean at out_size 64
+   (num_style_feat 64, channel_multiplier 0.5, narrow 0.5), RetinaFace
+   cfg_mnet and a slim ParseNet; the hook (``make_mouth_restorer``)
+   detecting and with ``landmarks5`` on four 96x112 frames, and the slim
+   non-SR ``possion`` composite of ``FaceEnhancer``, within one gray level,
+   every face valid, the mouth mask covering the boxes and the tail moving
+   their pixels by 5 gray levels or more on average; the 10-level
+   ``laplacian_pyramid_blend`` at 512^2 within 1e-3 (0..255), with its
+   device ms at the chain's batch.
+7. slice: the chained main path in the default configuration
    (``reuse_detections=False``) at full width, random weights from a fixed
    seed: 8 synthetic 512x512 frames -> ``extract_landmarks`` (boxes kept)
    -> ``ffhq_crop`` -> ``extract_landmarks`` on the crops ->
    ``extract_coeffs`` -> ``stabilize`` -> ``enhance_reference`` (Step 5:
    RetinaFace + ParseNet at 512^2, ``face_enhance=False``) ->
    ``melspectrogram`` (0.4 s of synthetic speech) -> ``synthesize`` with
-   the final hook (RetinaFace on the bilinear-2x 1024^2 frames), S3FD
-   (VGG16), FAN (2DFAN4), ReconNet (ResNet50), DNet, RetinaFace-R50,
-   ENet/LNet, GPEN-BFR-2048, ParseNet and RealESRNet x2 at their
-   production widths. Random detector weights find no face, so the
+   the mouth tail (RetinaFace, GFPGANv1Clean and ParseNet's mouth mask at
+   512^2, the 10-level blend) and the final hook (RetinaFace on the
+   bilinear-2x 1024^2 frames), S3FD (VGG16), FAN (2DFAN4), ReconNet
+   (ResNet50), DNet, RetinaFace-R50, ENet/LNet, GFPGANv1Clean(512),
+   GPEN-BFR-2048, ParseNet and RealESRNet x2 at their production widths,
+   RetinaFace and ParseNet shared by Step 5, the tail and the final stage
+   as cli.py shares them. Random detector weights find no face, so the
    face-class bias of S3FD's stride-4 head is raised by 20 and RetinaFace's
-   level-2 face logit by 4 (``with_face_logit``); every frame must have a
-   valid face in Step 5 and in the final stage. ParseNet's skin logit is
-   raised (``with_face_mask``, here and in the slim phases) so the whole
-   crop is pasted back. Where a step's geometry
+   level-2 face logit by 4 (``with_face_logit``), and its level-2 landmark
+   head set to the facexlib template's layout (``with_face_landmarks``:
+   random landmarks lie a few pixels apart and the face crops would cover
+   a speck of the frame); every frame must have a
+   valid face in Step 5, in the mouth tail and in the final stage.
+   ParseNet's class-11 logit (the upper lip, 255 in the face and in the
+   mouth colormap) is raised (``with_face_mask``, here and in the slim
+   phases), so the whole crop is pasted back and the mouth mask covers the
+   whole box; the mask's coverage and the tail's mean change inside the
+   boxes are printed and checked. Where a step's geometry
    comes from landmarks (the FFHQ crop, the 3DMM alignment, the reference
    faces) synthetic ones stand in, with a synthetic lm3d and a zero
    expression. The launch counts are reset just before this run and read
    just after; each kernel must have run, 38 and 27 times per frame (K2
    not at all). Per step: synchronised wall ms (Step 5 split into
-   detection, warp + parse, paste + composite) and, from one more run with
-   each step under its own torch.profiler session, device ms and the top
-   kernels; the final stage's RetinaFace pass timed alone (CUDA events and a
-   synchronised host clock), so nothing synchronises inside the final stage.
-7. train reference: one R1 d_step, one g_step and one plain d_step of
+   detection, warp + parse, paste + composite; the mouth tail and the final
+   stage per call, synchronised at their ends only) and, from one more run
+   with each step under its own torch.profiler session, device ms and the
+   top kernels, and from a last run the tail's device ms split into
+   detection, restore + paste and parse + blend; the final stage's
+   RetinaFace pass timed alone (CUDA events and a synchronised host clock),
+   so nothing synchronises inside the final stage or the tail.
+8. train reference: one R1 d_step, one g_step and one plain d_step of
    ``s2v_torch.train.gan.make_gan_trainer`` at slim widths on the card and
    on the CPU from the same weights and batch; metrics and every parameter
    gradient must agree.
-8. train: GPEN-BFR-512 (FullGenerator and Discriminator at full width,
+9. train: GPEN-BFR-512 (FullGenerator and Discriminator at full width,
    random weights from a fixed seed), batch 4 at 512^2 from
    ``face_batches`` over 8 synthetic faces, step pairs 0-16 (R1 at 0 and
    16), f32. The launch counts are reset just before and read just after;
@@ -412,18 +434,59 @@ def with_face_logit(torch, retina, bias):
     return retina
 
 
+def with_face_landmarks(torch, retina, span=2.0):
+    """Random landmark heads put a face's 5 points within a few pixels of
+    each other, and the warps they set restore a speck of the frame
+    (RetinaFace's speck, not where S3FD's box put the ENet paste). Level
+    2's landmark head is set to place every anchor's points where the
+    facexlib template has them, in a square ``span`` times the anchor's
+    size (weights zeroed, biases the template's offsets from its centre
+    over the decode's 0.1 variance), and its 512-px anchors' face logit is
+    raised by 2 over the 256-px ones': the face crops of Step 5, the mouth
+    tail and the final stage then span 1024 px, the whole of a 512^2
+    frame, wherever the argmax lands."""
+    from s2v_torch.pipeline.restoration import FACEXLIB_TEMPLATE_512
+
+    offsets = (FACEXLIB_TEMPLATE_512 - 256.0) / 512.0 * span / 0.1  # [5, 2]
+    with torch.no_grad():
+        head = retina.LandmarkHead[2].conv1x1
+        head.weight.zero_()
+        head.bias.copy_(torch.from_numpy(np.tile(offsets.reshape(-1), 2)))
+        retina.ClassHead[2].conv1x1.bias[3] += 2.0
+    return retina
+
+
+MOUTH_CLASS = 11  # the upper lip: 255 in the face and in the mouth colormap
+
+
 def with_face_mask(torch, parsenet, bias=1.0):
     """Random ParseNet logits vary by about 0.2 and mostly pick classes the
-    blending colormap maps to 0, so little or nothing would be pasted: the
-    skin class's logit (``out_mask_conv`` channel 1, colormap 255) is raised
-    by ``bias``, and the whole crop is face."""
+    colormaps map to 0, so the enhancers would paste little and the mouth
+    tail nothing: class 11's logit is raised by ``bias``, and the whole crop
+    is face and mouth."""
     with torch.no_grad():
-        parsenet.out_mask_conv.conv2d.bias[1] += bias
+        parsenet.out_mask_conv.conv2d.bias[MOUTH_CLASS] += bias
     return parsenet
+
+
+def with_unsaturated_rgb(torch, gfpgan, scale=0.25):
+    """GFPGAN with its ToRGB layers scaled by ``scale``: random weights put
+    part of the output outside [-1, 1], the restored face is then exact 0s
+    and 255s there, and a paste of those lands on integers, where the last
+    f32 bit decides the uint8 truncation on each device."""
+    from s2v_torch.models.layers import ToRGB
+
+    with torch.no_grad():
+        for module in gfpgan.modules():
+            if isinstance(module, ToRGB):
+                module.modulated_conv.weight *= scale
+                module.bias *= scale
+    return gfpgan
 
 
 def slim_models(torch):
     from s2v_torch.models.enet import ENet
+    from s2v_torch.models.gfpgan import GFPGANv1Clean
     from s2v_torch.models.gpen import FullGenerator
     from s2v_torch.models.parsenet import ParseNet
     from s2v_torch.models.retinaface import retinaface_mnet
@@ -438,11 +501,14 @@ def slim_models(torch):
                     parsenet=with_face_mask(torch, ParseNet(base_ch=16, max_ch=32, min_ch=8,
                                                             res_depth=2)),
                     srmodel=RRDBNet(scale=2, num_feat=16, num_block=2, num_grow_ch=8),
-                    retinaface=with_face_logit(torch, retinaface_mnet(), 4.0))
+                    retinaface=with_face_logit(torch, retinaface_mnet(), 4.0),
+                    gfpgan=with_unsaturated_rgb(torch, GFPGANv1Clean(
+                        out_size=64, num_style_feat=64, channel_multiplier=0.5, narrow=0.5)))
 
 
 def full_models(torch):
     from s2v_torch.models.enet import ENet
+    from s2v_torch.models.gfpgan import GFPGANv1Clean
     from s2v_torch.models.gpen import FullGenerator
     from s2v_torch.models.parsenet import ParseNet
     from s2v_torch.models.retinaface import RetinaFace
@@ -453,11 +519,13 @@ def full_models(torch):
         return dict(enet=ENet(), facegan=FullGenerator(size=2048),
                     parsenet=with_face_mask(torch, ParseNet()),
                     srmodel=RRDBNet(scale=2, num_feat=32, num_block=23, num_grow_ch=32),
-                    retinaface=with_face_logit(torch, RetinaFace(), 4.0))
+                    retinaface=with_face_landmarks(torch, with_face_logit(torch, RetinaFace(),
+                                                                          4.0)),
+                    gfpgan=GFPGANv1Clean())  # GFPGANv1.4's geometry
 
 
 def make_pipeline(models, in_size, dtype, parse_size, device, batch=16, steps=None,
-                  reuse=True):
+                  reuse=True, mouth=False):
     """The Step 6 pipeline with the final hook; ``steps`` adds the Step 1-3
     models (with the synthetic lm3d and a zero expression). With ``reuse``
     the final stage takes the Step-1 landmarks (model.reuse_detections);
@@ -465,7 +533,10 @@ def make_pipeline(models, in_size, dtype, parse_size, device, batch=16, steps=No
     final stage and Step 5 (GPEN-BFR-512's enhancer at 512^2 with
     face_enhance=False, which runs no GPEN and so is built without one,
     sharing RetinaFace and ParseNet with the final stage as cli.py does).
-    Returns (pipeline, final hook, final enhancer, Step-5 enhancer or None)."""
+    With ``mouth`` the mouth tail runs before the final stage (GFPGANv1Clean
+    at 512, sharing RetinaFace and ParseNet too). Returns (pipeline, final
+    hook, final enhancer, Step-5 enhancer or None, mouth hook or None)."""
+    from s2v_torch.pipeline.restoration import make_mouth_restorer
     from s2v_torch.pipeline.enhance import (FaceEnhancer, final_enhancer_hook,
                                             reference_enhancer_hook)
     from s2v_torch.pipeline.inference import LipSyncPipeline, PipelineModels
@@ -483,9 +554,14 @@ def make_pipeline(models, in_size, dtype, parse_size, device, batch=16, steps=No
     extra = {} if steps is None else dict(steps, lm3d=LM3D, expression=np.zeros(64, np.float32))
     if ref is not None:
         extra["ref_enhancer"] = reference_enhancer_hook(ref)
+    tail = None
+    if mouth:
+        tail = extra["mouth_restorer"] = make_mouth_restorer(
+            {k: models[k] for k in ("retinaface", "gfpgan", "parsenet")}, parse_size=parse_size,
+            dtype=dtype, device=device)
     pipe = LipSyncPipeline(cfg, PipelineModels(enet=models["enet"], final_enhancer=hook,
                                                **extra), device=device)
-    return pipe, hook, final, ref
+    return pipe, hook, final, ref, tail
 
 
 # a synthetic 5-point lm3d (the BFM file is not in the repo), as
@@ -565,14 +641,15 @@ def frames_agree(what, got, want, shape):
 
 
 def record_valid(enhancer, sink):
-    """Wrap ``enhancer._detect`` so each call's input and valid flags land
-    in ``sink`` (on the device: reading them here would synchronise)."""
+    """Wrap ``enhancer._detect`` (a FaceEnhancer's or a GFPGANRestorer's:
+    the valid flags come last) so each call's input and valid flags land in
+    ``sink`` (on the device: reading them here would synchronise)."""
     detect = enhancer._detect
 
     def run(x):
-        lms, small, valid = detect(x)
-        sink.append((x, valid))
-        return lms, small, valid
+        out = detect(x)
+        sink.append((x, out[-1]))
+        return out
 
     enhancer._detect = run
 
@@ -660,6 +737,103 @@ def phase_retina_reference(torch):
                                       outs["cuda"][i], outs["cpu"][i], shape), valid=counts)
         if counts != [4, 4]:
             fail(f"retina reference: slim {what}: not every frame valid")
+    return res
+
+
+def mouth_checks(torch, parsenet, restored, frames, out, boxes, parse_size):
+    """The mouth mask's coverage of the boxes (ParseNet on the restored face
+    boxes, as the tail parses them) and the tail's mean change inside the
+    boxes, in gray levels. restored, frames, out [k, 3, H, W] or [k, H, W, 3]
+    uint8 tensors on one device; boxes [k, 4] x1y1x2y2."""
+    from s2v_torch.device import full_f32
+    from s2v_torch.models.parsenet import MOUTH_COLORMAP, parse_mask
+    from s2v_torch.ops.warp import crop_resize_boxes
+
+    def nchw(t):
+        t = torch.as_tensor(t)
+        return (t if t.shape[1] == 3 else t.permute(0, 3, 1, 2)).float()
+
+    restored, frames, out = nchw(restored), nchw(frames), nchw(out)
+    bx = torch.as_tensor(np.asarray(boxes, np.float32), device=restored.device)
+    with torch.no_grad(), full_f32():
+        crop = crop_resize_boxes(restored, bx, (parse_size, parse_size))
+        logits, _ = parsenet(crop / 255.0 * 2.0 - 1.0)
+    coverage = float((parse_mask(logits.float(), MOUTH_COLORMAP) > 0).float().mean())
+    change = []
+    for k, (x1, y1, x2, y2) in enumerate(np.asarray(boxes).astype(int)):
+        change.append(float((out[k, :, y1:y2, x1:x2] - frames[k, :, y1:y2, x1:x2]).abs().mean()))
+    return coverage, float(np.mean(change))
+
+
+def phase_mouth_reference(torch, card):
+    """The mouth tail at slim widths on the card against the CPU, f32: the
+    hook detecting and with landmarks5, the non-SR possion composite, every
+    face valid, the mask covering the boxes and the boxes changed; then the
+    10-level blend at 512^2 on both, and its device ms on the card at the
+    chain's batch of 7."""
+    from s2v_torch.models.fan import lm68_to_lm5
+    from s2v_torch.pipeline.enhance import FaceEnhancer
+    from s2v_torch.pipeline.restoration import make_mouth_restorer
+    from s2v_torch.pipeline.utils import laplacian_pyramid_blend
+
+    models = slim_models(torch)
+    x = clip_inputs(4, 96, 112, 0.1, seed=8)
+    frames, boxes = x["frames"], x["boxes"]
+    lm5 = lm68_to_lm5(x["lms_full"]).astype(np.float32)
+    outs, valid, checks = {}, {}, {}
+    for dev in ("cpu", "cuda"):
+        m = copy.deepcopy(models)
+        hook = make_mouth_restorer({k: m[k] for k in ("retinaface", "gfpgan", "parsenet")},
+                                   chunk=4, parse_size=128, dtype="float32", device=dev)
+        enh = FaceEnhancer({k: m[k] for k in ("retinaface", "facegan", "parsenet")}, in_size=64,
+                           dtype="float32", parse_size=128, device=dev)
+        sinks = ([], [])
+        record_valid(hook.restorer, sinks[0])
+        record_valid(enh, sinks[1])
+        detected = hook(frames, boxes)
+        supplied = hook(frames, boxes, landmarks5=lm5)  # runs no detector
+        possion = enh.process_batch(frames, face_enhance=True, possion_blending=True,
+                                    bboxes=boxes[:, [1, 3, 0, 2]])
+        valid[dev] = [valid_count(sink)[0] for sink in sinks]
+        checks[dev] = [mouth_checks(torch, hook.parsenet, hook.restorer.enhance_batch(frames, **kw),
+                                    torch.as_tensor(frames, device=dev), out, boxes, 128)
+                       for out, kw in ((detected, {}), (supplied, {"landmarks5": lm5}))]
+        outs[dev] = [t.cpu().numpy() for t in (detected, supplied, possion)]
+    res = {}
+    for i, what in enumerate(("hook detecting", "hook with landmarks5", "possion composite")):
+        counts = [valid[d][1 if i == 2 else 0] for d in ("cuda", "cpu")]
+        label = ("no detector" if i == 1 else
+                 f"valid card {counts[0]}/4, CPU {counts[1]}/4")
+        res[what] = dict(frames_agree(f"mouth reference: slim {what} card vs CPU ({label})",
+                                      outs["cuda"][i], outs["cpu"][i], (4, 96, 112, 3)))
+        if i != 1:
+            res[what]["valid"] = counts
+            if counts != [4, 4]:
+                fail(f"mouth reference: slim {what}: not every frame valid")
+        if i < 2:
+            coverage, change = checks["cuda"][i]
+            res[what].update(mask_coverage=coverage, box_change=change)
+            print(f"  mouth mask covers {100 * coverage:.1f}% of the boxes (want > 99%); "
+                  f"mean change in the boxes {change:.1f} gray levels (want > 5)")
+            if not (coverage > 0.99 and change > 5.0):
+                fail(f"mouth reference: slim {what}: the mask or the tail did nothing")
+
+    rng = np.random.RandomState(9)
+    a, b = [torch.from_numpy((rng.rand(7, 3, 512, 512) * 255).astype(np.float32))
+            for _ in range(2)]
+    mask = torch.from_numpy(rng.rand(7, 1, 512, 512).astype(np.float32))
+    want = laplacian_pyramid_blend(a, b, mask, 10)
+    args = [t.cuda() for t in (a, b, mask)]
+    got = laplacian_pyramid_blend(*args, 10)
+    err = (got.cpu() - want).abs().max().item()
+    ms = event_ms(torch, lambda: laplacian_pyramid_blend(*args, 10))
+    ok = err <= 1e-3
+    print(f"mouth reference: laplacian_pyramid_blend [7, 3, 512, 512], 10 levels, card vs CPU: "
+          f"max abs err {err:.2e} (tol 1e-3, 0..255) {'ok' if ok else 'FAIL'}; "
+          f"{ms:.3f} ms on the card for the batch ({ms / 7:.3f} a frame); {card}")
+    if not ok:
+        fail("mouth reference: laplacian_pyramid_blend on the card disagrees with the CPU")
+    res["blend"] = dict(max_abs_err=err, ms_batch7=ms)
     return res
 
 
@@ -855,7 +1029,8 @@ def run_chain(torch, pipe, x, clock):
         out = pipe.synthesize(enhanced, mel, frames_dev, coords, 25.0, boxes_full=boxes,
                               lms_stab=x["lms_stab"])
     clock.ms["recon"] = sum(b - a for a, b in zip(recon_s[::2], recon_s[1::2])) * 1e3
-    clock.ms["host_alignment"] = clock.ms["coeffs"] - clock.ms["recon"]
+    if "coeffs" in clock.ms:  # (a run that profiles other steps does not time it)
+        clock.ms["host_alignment"] = clock.ms["coeffs"] - clock.ms["recon"]
     return out, dict(boxes=boxes, coords=coords, stab=stab, enhanced=enhanced, mel=mel,
                      frames_dev=frames_dev, semantic=semantic)
 
@@ -865,6 +1040,8 @@ def run_chain(torch, pipe, x, clock):
 STEPS = ("step1_sweep", "ffhq_crop", "crop_sweep", "host_alignment", "recon", "dnet")
 STEP5 = ("step5_detect", "step5_warp_parse", "step5_paste")
 PROFILED = ("step1_sweep", "ffhq_crop", "crop_sweep", "coeffs", "dnet") + STEP5
+# the mouth tail's parts, profiled in a run of their own (inside synthesize)
+TAIL = ("mouth_detect", "mouth_restore_paste", "mouth_parse_blend")
 
 
 def phase_slice(torch, card):
@@ -874,8 +1051,8 @@ def phase_slice(torch, card):
     t = time.perf_counter()
     models = full_models(torch)
     steps = steps_models(torch, slim=False, face_bias=20.0)
-    pipe, hook, final, ref = make_pipeline(models, 2048, "bfloat16", 512, "cuda", steps=steps,
-                                           reuse=False)
+    pipe, hook, final, ref, mouth = make_pipeline(models, 2048, "bfloat16", 512, "cuda",
+                                                  steps=steps, reuse=False, mouth=True)
 
     def mparams(m):
         return f"{sum(p.numel() for p in m.parameters()) / 1e6:.1f}M"
@@ -883,13 +1060,15 @@ def phase_slice(torch, card):
     print(f"slice: built full-width models in {time.perf_counter() - t:.1f} s "
           f"(S3FD {mparams(steps['s3fd'])}, FAN {mparams(steps['fan'])}, ReconNet "
           f"{mparams(steps['recon'])}, DNet {mparams(steps['dnet'])}, RetinaFace-R50 "
-          f"{mparams(models['retinaface'])}, ENet {mparams(models['enet'])}, GPEN-BFR-2048 "
+          f"{mparams(models['retinaface'])}, ENet {mparams(models['enet'])}, GFPGANv1Clean "
+          f"{mparams(models['gfpgan'])}, GPEN-BFR-2048 "
           f"{mparams(models['facegan'])}, ParseNet {mparams(models['parsenet'])}, RRDBNet "
           f"{mparams(models['srmodel'])} params); default configuration "
           f"(reuse_detections={pipe.cfg.model.reuse_detections})")
     x = clip_inputs(8, 512, 512, 0.4, seed=0)
 
-    stages = {"enet_batch": [], "final": []}
+    stages = {"enet_batch": [], "mouth": [], "final": []}
+    last = {}  # the tail's last call: its input, boxes and output; GFPGAN's restore
 
     def timed(fn, key):
         def run(*a, **k):
@@ -898,15 +1077,26 @@ def phase_slice(torch, card):
             out = fn(*a, **k)
             torch.cuda.synchronize()
             stages[key].append((time.perf_counter() - t0) * 1e3)
+            if key == "mouth":
+                last.update(frames=a[0], boxes=a[1], out=out)
             return out
         return run
 
+    def keep_restored(fn):
+        def run(restored, frames, boxes):
+            last["restored"] = restored
+            return fn(restored, frames, boxes)
+        return run
+
     pipe._step6 = timed(pipe._step6, "enet_batch")
+    pipe.models.mouth_restorer = timed(mouth, "mouth")
+    mouth._blend = keep_restored(mouth._blend)
     pipe.models.final_enhancer = timed(hook, "final")
     detect = final._detect  # the final stage's RetinaFace pass, timed alone below
-    valid = {"step5": [], "final": []}
+    valid = {"step5": [], "mouth": [], "final": []}
     record_valid(ref, valid["step5"])
-    record_valid(final, valid["final"])  # no clock inside the final stage: no syncs
+    record_valid(mouth.restorer, valid["mouth"])  # no clock inside the tail or the final
+    record_valid(final, valid["final"])  # stage: no syncs
     current = {}
     clock_methods(ref, lambda: current["clock"], dict(
         _detect="step5_detect", _faces_and_masks="step5_warp_parse",
@@ -944,13 +1134,19 @@ def phase_slice(torch, card):
     ok_step5 = (enhanced.shape == stab.shape and enhanced.dtype == np.uint8
                 and step5_changed > 0 and valid_counts["step5"] == (nf, nf))
     ok_final = valid_counts["final"] == (n, n)
+    coverage, change = mouth_checks(torch, mouth.parsenet, last["restored"].to(torch.uint8),
+                                    last["frames"], last["out"], last["boxes"].cpu().numpy(), 512)
+    ok_mouth = valid_counts["mouth"] == (n, n) and coverage > 0.99 and change > 5.0
     print(f"slice: Steps 1-3: boxes {inter['boxes'].shape}, FFHQ crop {inter['coords']}, "
           f"coefficients {inter['semantic'].shape}, stabilised {stab.shape} std "
           f"{stab.std():.2f}; Step 5: {enhanced.shape}, valid faces {valid_counts['step5'][0]} "
-          f"of {valid_counts['step5'][1]}, mean change {step5_changed:.2f} gray levels; final "
+          f"of {valid_counts['step5'][1]}, mean change {step5_changed:.2f} gray levels; mouth "
+          f"tail valid faces {valid_counts['mouth'][0]} of {valid_counts['mouth'][1]}, mouth "
+          f"mask {100 * coverage:.1f}% of the boxes (last batch), mean change in the boxes "
+          f"{change:.2f} gray levels; final "
           f"stage valid faces {valid_counts['final'][0]} of {valid_counts['final'][1]}; output "
           f"{out.shape} {out.dtype}, std {std:.2f}, mel {tuple(inter['mel'].shape)}, {n} "
-          f"chunks; {'ok' if ok_shape and std > 0 and ok_steps and ok_step5 and ok_final else 'FAIL'}")
+          f"chunks; {'ok' if ok_shape and std > 0 and ok_steps and ok_step5 and ok_final and ok_mouth else 'FAIL'}")
     if not ok_shape:
         fail(f"slice output {out.shape} {out.dtype}, want ({n}, 1024, 1024, 3) uint8")
     if not std > 0:
@@ -962,6 +1158,9 @@ def phase_slice(torch, card):
              "they were")
     if not ok_final:
         fail(f"slice: the final stage found faces in {valid_counts['final']} frames")
+    if not ok_mouth:
+        fail(f"slice: the mouth tail found faces in {valid_counts['mouth']} frames, its mask "
+             f"covered {coverage:.3f} of the boxes, it moved them by {change:.2f} gray levels")
     want = {"fused_act": 38 * n, "fused_act_bwd": 0, "upfirdn2d": 27 * n}
     for name, count in launches.items():
         print(f"slice: {name} launches {count} on the main path "
@@ -975,6 +1174,28 @@ def phase_slice(torch, card):
     prof = current["clock"] = StepClock(torch, profile=set(PROFILED) | {"synthesize"})
     torch.cuda.synchronize()
     run_chain(torch, pipe, x, prof)
+    # a fourth run with the tail's parts each under its own profiler session
+    clock_methods(mouth.restorer, lambda: current["clock"], dict(
+        _detect="mouth_detect", _restore_paste="mouth_restore_paste"))
+    clock_methods(mouth, lambda: current["clock"], dict(_blend="mouth_parse_blend"))
+    tail_prof = current["clock"] = StepClock(torch, profile=set(TAIL))
+    torch.cuda.synchronize()
+    run_chain(torch, pipe, x, tail_prof)
+    tail_dev = {k: tail_prof.device_ms[k] / n for k in TAIL}
+    tail_wall = sum(run_stages["mouth"]) / n
+    print(f"slice: mouth tail per output frame ({n} frames, one call): wall {tail_wall:.2f} ms "
+          f"(synchronised at its ends), device {sum(tail_dev.values()):.2f} ms: detection "
+          f"(RetinaFace-R50 512^2, f32) {tail_dev['mouth_detect']:.2f}, restore + paste "
+          f"(GFPGANv1Clean 512, bf16) {tail_dev['mouth_restore_paste']:.2f}, parse + blend "
+          f"(ParseNet 512^2 f32, 10-level blend) {tail_dev['mouth_parse_blend']:.2f}; {card}")
+    tail_top = {}
+    for name in TAIL:
+        for key, calls, ms in tail_prof.rows[name]:
+            c, m = tail_top.get(key, (0, 0.0))
+            tail_top[key] = (c + calls, m + ms)
+    tail_top = sorted(tail_top.items(), key=lambda kv: -kv[1][1])[:8]
+    for key, (calls, ms) in tail_top:
+        print(f"  {ms:8.2f} ms {calls:5d}x  {key[:90]}")
     steps_wall = sum(clock.ms[k] for k in STEPS)
     steps_dev = sum(prof.device_ms[k] for k in PROFILED if k not in STEP5)
     print(f"slice: Steps 1-3 and 5 per frame ({nf} frames), wall / device ms; {card}")
@@ -1010,6 +1231,9 @@ def phase_slice(torch, card):
                final_detect_device_per_frame_ms=final_detect_dev,
                final_detect_shape=list(frame.shape), valid=valid_counts,
                enet_batch_ms=run_stages["enet_batch"],
+               mouth_wall_per_frame_ms=tail_wall, mouth_device_per_frame_ms=tail_dev,
+               mouth_top=[dict(name=k[:90], calls=c, ms=m) for k, (c, m) in tail_top],
+               mouth_mask_coverage=coverage, mouth_box_change=change,
                final_per_frame_ms=sum(run_stages["final"]) / n, total_ms=total_ms,
                synthesize_ms=clock.ms["synthesize"], mel_ms=clock.ms["mel"],
                frames_per_s=n / total_ms * 1e3, peak_gib=peak)
@@ -1019,7 +1243,7 @@ def phase_slice(torch, card):
     print(f"slice: mel {per['mel_ms']:.1f} ms; ENet per batch "
           f"{', '.join(f'{v:.1f}' for v in run_stages['enet_batch'])} ms; final stage "
           f"{per['final_per_frame_ms']:.1f} ms/frame; synthesize {per['synthesize_ms']:.1f} "
-          f"ms; chain total {total_ms:.1f} ms ({per['frames_per_s']:.2f} frames/s); peak "
+          f"ms; mouth tail {tail_wall:.1f} ms/frame; chain total {total_ms:.1f} ms ({per['frames_per_s']:.2f} frames/s); peak "
           f"{peak:.1f} GiB; {card}")
     per["profile"] = profile_rows(prof.rows["synthesize"], "synthesize in the profiled run",
                                   per["synthesize_ms"])
@@ -1292,6 +1516,7 @@ def main():
     report["reference"] = phase_reference(torch)
     report["steps_reference"] = phase_steps_reference(torch)
     report["retina_reference"] = phase_retina_reference(torch)
+    report["mouth_reference"] = phase_mouth_reference(torch, card)
     launches, report["slice"] = phase_slice(torch, card)
     report["train_reference"] = phase_train_reference(torch)
     train_launches, report["train"] = phase_train(torch, card)

@@ -1,6 +1,7 @@
 """ParseNet — 19-class face parsing (reference:
 third_part/GPEN/face_parse/parse_model.py + blocks.py), NCHW. GPEN's
-enhancer uses it for the full-face blending mask.
+enhancer uses it for the full-face blending mask, the Step-6 mouth tail for
+the mouth mask (``MOUTH_COLORMAP``).
 
 Production configuration: 512 in and out, min feature size 32 (4 down, 4
 up), base 64 channels clipped to [32, 256], 10-block body, BatchNorm +
@@ -102,6 +103,11 @@ class ParseNet(nn.Module):
         feat = self.encoder(x)
         out = self.decoder(feat + self.body(feat))
         return self.out_mask_conv(out), self.out_img_conv(out)
+
+
+# the Step-6 mouth mask colormap (inference.py:304): mouth, upper and lower
+# lip (classes 10-12) only
+MOUTH_COLORMAP = [0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 255, 255, 255, 0, 0, 0, 0, 0, 0]
 
 
 def parse_mask(logits: torch.Tensor, colormap: Sequence[float]) -> torch.Tensor:

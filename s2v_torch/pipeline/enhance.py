@@ -14,8 +14,9 @@ caller supplies them: config ``model.reuse_detections``, the pipeline's
 similarity warps the frame to the ``in_size`` crop; ParseNet's face mask,
 border-zeroed and double-blurred, pastes the face back through the inverse
 warp. A frame whose best face scores under ``threshold`` keeps its
-original (or SR) pixels. The Laplacian-blend composites (``possion_blending``
-without SR) are not ported.
+original (or SR) pixels. Without SR, ``possion_blending`` composites with a
+6-level Laplacian blend at 512^2 instead of the double alpha: over the face
+mask restricted to the boxes, or over the full mask when no boxes are given.
 
 Public layout as s2v_tpu: NHWC uint8 frames, [N, 5, 2] landmarks in pre-SR
 pixel coordinates, x1y1x2y2 boxes. Inside, NCHW float tensors on the device.
@@ -34,7 +35,7 @@ from s2v_torch.models.parsenet import parse_mask
 from s2v_torch.models.retinaface import RETINA_MEAN, detect_faces
 from s2v_torch.ops.image import frames_to_nchw, resize_bilinear
 from s2v_torch.ops.warp import affine_warp
-from s2v_torch.pipeline.utils import gaussian_blur, mask_postprocess
+from s2v_torch.pipeline.utils import gaussian_blur, laplacian_pyramid_blend, mask_postprocess
 
 # align_faces.py:14-22
 REFERENCE_FACIAL_POINTS = np.array(
@@ -117,6 +118,25 @@ def _to_u8(x: torch.Tensor) -> torch.Tensor:
     return torch.clamp(x, 0.0, 255.0).to(torch.uint8)
 
 
+def _box_mask(bboxes, hw, device) -> torch.Tensor:
+    """[k, 1, H, W] ones over rows y1 to max(y2 - 5, y1) and columns x1 to
+    x2 of each (y1, y2, x1, x2) box, zeros elsewhere: the blending mask's
+    box restriction (face_enhancement.py:181-184), with numpy's slice
+    semantics for the truncated bounds (as s2v_tpu builds it)."""
+    h, w = hw
+    bounds = []
+    for y1, y2, x1, x2 in (tuple(int(t) for t in b) for b in np.asarray(bboxes)):
+        ys, ye, _ = slice(y1, max(y2 - 5, y1)).indices(h)
+        xs, xe, _ = slice(x1, x2).indices(w)
+        bounds.append((ys, ye, xs, xe))
+    b = torch.tensor(bounds, dtype=torch.float32, device=device)
+    ys = torch.arange(h, dtype=torch.float32, device=device)[None, :, None]
+    xs = torch.arange(w, dtype=torch.float32, device=device)[None, None, :]
+    m = ((ys >= b[:, 0, None, None]) & (ys < b[:, 1, None, None])
+         & (xs >= b[:, 2, None, None]) & (xs < b[:, 3, None, None]))
+    return m[:, None].float()
+
+
 class FaceEnhancer:
     """GPEN FaceEnhancement, with the surface of s2v_tpu's (``models``,
     ``in_size``, ``threshold``, ``process_batch``).
@@ -196,19 +216,32 @@ class FaceEnhancer:
         return ef, tmp_mask, resize_bilinear(mask_sharp, (s, s))
 
     @torch.no_grad()
-    def _paste_composite(self, ef, tmp_mask, mask_sharp, tfms, base, valid, sr: bool):
+    def _paste_composite(self, ef, tmp_mask, mask_sharp, tfms, base, valid, mode: str,
+                         box_mask=None):
         """Inverse-warp the face and its masks to the frame (one 5-channel
-        warp) and composite over ``base`` [k, 3, H, W] (the SR frame with
-        ``sr``, else the original: the default double alpha, the sharp mask
-        blurred by GaussianBlur(9, 1.0)); frames not ``valid`` keep ``base``.
-        Returns uint8 [k, 3, H, W]."""
+        warp) and composite over ``base`` [k, 3, H, W] (the SR frame in
+        ``mode`` 'sr', else the original), the sharp mask blurred by
+        GaussianBlur(9, 1.0) (face_enhancement.py:162). 'default': the double
+        alpha (face_enhancement.py:191-193); 'possion': the 6-level Laplacian
+        blend at 512^2 over the sharp mask times ``box_mask`` [k, 1, H, W];
+        'possion_nobbox': over the full mask (face_enhancement.py:179-189).
+        Frames not ``valid`` keep ``base``. Returns uint8 [k, 3, H, W]."""
         packed = affine_warp(torch.cat([ef, tmp_mask, mask_sharp], dim=1), tfms,
                              base.shape[2:], inverse=True)
         tmp_img, full_mask = packed[:, :3], packed[:, 3:4]
-        out = base * (1.0 - full_mask) + tmp_img * full_mask
-        if not sr:  # face_enhancement.py:191-193
-            mask_sharp_w = gaussian_blur(packed[:, 4:5], 9, 1.0)
-            out = base * (1.0 - mask_sharp_w) + out * mask_sharp_w
+        if mode.startswith("possion"):
+            blend_mask = (gaussian_blur(packed[:, 4:5], 9, 1.0) * box_mask
+                          if mode == "possion" else full_mask)
+            blended = laplacian_pyramid_blend(resize_bilinear(tmp_img, (512, 512)),
+                                              resize_bilinear(base, (512, 512)),
+                                              resize_bilinear(blend_mask, (512, 512)),
+                                              num_levels=6)
+            out = resize_bilinear(torch.clamp(blended, 0.0, 255.0), base.shape[2:])
+        else:
+            out = base * (1.0 - full_mask) + tmp_img * full_mask
+            if mode == "default":
+                mask_sharp_w = gaussian_blur(packed[:, 4:5], 9, 1.0)
+                out = base * (1.0 - mask_sharp_w) + out * mask_sharp_w
         return _to_u8(torch.where(valid[:, None, None, None], out, base))
 
     @torch.no_grad()
@@ -222,19 +255,18 @@ class FaceEnhancer:
                       possion_blending: bool = False, bboxes=None, landmarks5=None,
                       det_boxes=None) -> torch.Tensor:
         """s2v_tpu's FaceEnhancer.process_batch: frames [N, H, W, 3] uint8
-        (numpy or tensor). ``ori_frames`` is the paste base of the default
-        composite (the frames when None). ``landmarks5`` [N, 5, 2] in frame
+        (numpy or tensor). ``ori_frames`` is the paste base of the non-SR
+        composites (the frames when None). ``landmarks5`` [N, 5, 2] in frame
         pixels replace the RetinaFace pass (all frames then valid);
         ``det_boxes`` [N, 4] x1y1x2y2 feed their small-face flag (all faces
         large when absent). Under SR the composite is over the SR frame
-        whatever ``possion_blending`` says, and ``bboxes`` (y1, y2, x1, x2),
-        which only restrict the Laplacian blend's mask, are unused. Returns
-        [N, sH, sW, 3] uint8 on the device (s = the SR scale, or 1)."""
-        if possion_blending and not self.use_sr:
-            raise NotImplementedError(
-                "the Laplacian-blend composite (possion_blending without SR) needs "
-                "laplacian_pyramid_blend, which the port does not have yet (ROADMAP: "
-                "the mouth tail)")
+        whatever ``possion_blending`` says; without SR, ``possion_blending``
+        takes the Laplacian blend, its mask restricted to ``bboxes`` [N, 4]
+        (y1, y2, x1, x2; rows y1 to y2 - 5) when given. Returns [N, sH, sW,
+        3] uint8 on the device (s = the SR scale, or 1)."""
+        mode = ("sr" if self.use_sr else
+                ("possion" if bboxes is not None else "possion_nobbox") if possion_blending
+                else "default")
         x = _to_u8(frames_to_nchw(frames, self.device)).float()
         n, _, h, w = x.shape
         ori = x if ori_frames is None else _to_u8(frames_to_nchw(ori_frames, self.device)).float()
@@ -266,7 +298,9 @@ class FaceEnhancer:
                 lms_c, small_c, valid_c = lms[sl], small[sl], valid[sl]
             tfms, _ = umeyama_similarity_batched(lms_c, self.reference_5pts)
             faces = self._faces_and_masks(c, tfms, small_c, face_enhance)
-            out.append(self._paste_composite(*faces, tfms, base, valid_c, self.use_sr))
+            mb = (_box_mask(np.asarray(bboxes)[sl], base.shape[2:], self.device)
+                  if mode == "possion" else None)
+            out.append(self._paste_composite(*faces, tfms, base, valid_c, mode, mb))
         return torch.cat(out).permute(0, 2, 3, 1)
 
 

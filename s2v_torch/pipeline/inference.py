@@ -15,11 +15,13 @@ s2v_tpu/pipeline/inference.py ``LipSyncPipeline``):
   ParseNet and composited back) over the stabilised frames; under config
   ``model.reuse_detections`` one landmark sweep of those frames replaces
   its RetinaFace pass and serves Step 6's reference faces too.
-- Step 6: ``synthesize``: reference faces, ENet synthesis and paste-back,
-  then the ``final_enhancer`` hook (GPEN-BFR-2048 + RealESRNet x2,
-  ``s2v_torch.pipeline.enhance``), which locates the face with RetinaFace on
-  the bilinear-2x frame, or takes the Step-1 landmarks under
-  ``model.reuse_detections``.
+- Step 6: ``synthesize``: reference faces, ENet synthesis and paste-back;
+  the ``mouth_restorer`` hook (GFPGANv1Clean, ParseNet's mouth mask and the
+  10-level Laplacian blend, ``s2v_torch.pipeline.restoration``); then the
+  ``final_enhancer`` hook (GPEN-BFR-2048 + RealESRNet x2,
+  ``s2v_torch.pipeline.enhance``). Both hooks locate the face with
+  RetinaFace (the final one on the bilinear-2x frame), or take the Step-1
+  landmarks under ``model.reuse_detections``.
 
 S3FD, FAN and ReconNet run in full f32 (no TF32); DNet and ENet under bf16
 autocast on the card when ``model.dtype`` is bfloat16. Public layout as
@@ -59,6 +61,8 @@ class PipelineModels:
     expression: [64] template expression coefficients.
     ref_enhancer(frames [N, 256, 256, 3] uint8, landmarks5=None,
     det_boxes=None) -> [N, 256, 256, 3] uint8 (Step 5).
+    mouth_restorer(frames [B, H, W, 3] uint8, boxes [B, 4] x1y1x2y2,
+    landmarks5=None) -> [B, H, W, 3] uint8 (the Step-6 mouth tail).
     final_enhancer(frames [B, H, W, 3] uint8, boxes [B, 4] x1y1x2y2,
     landmarks5=None, det_boxes=None) -> [B, 2H, 2W, 3] uint8.
     """
@@ -71,6 +75,7 @@ class PipelineModels:
     lm3d: Optional[np.ndarray] = None
     expression: Optional[np.ndarray] = None
     ref_enhancer: Optional[Callable] = None
+    mouth_restorer: Optional[Callable] = None
     final_enhancer: Optional[Callable] = None
 
 
@@ -374,8 +379,9 @@ class LipSyncPipeline:
         mel [80, T]; full_frames [N, H, W, 3] uint8; coordinates (oy1, oy2,
         ox1, ox2) of the FFHQ crop. boxes_full [N, 4] x1y1x2y2 are the Step-1
         boxes (detected here when None); lms_full the Step-1 landmarks, which
-        the final enhancer takes under ``model.reuse_detections`` (else it
-        runs its own RetinaFace pass); lms_stab the landmarks of
+        the mouth tail and the final enhancer take under
+        ``model.reuse_detections`` (else each runs its own RetinaFace pass);
+        lms_stab the landmarks of
         ``stabilized`` (swept here when None). Returns [n_chunks, H', W', 3]
         uint8 with H' = 2H when the final enhancer runs."""
         self._require("enet")
@@ -402,6 +408,7 @@ class LipSyncPipeline:
         lm5 = (lm68_to_lm5(np.asarray(lms_full)[:n_frames]).astype(np.float32)
                if reuse else None)
         boxes_dev = torch.as_tensor(boxes.astype(np.float32), device=self.device)
+        lm5_dev = None if lm5 is None else torch.as_tensor(lm5, device=self.device)
 
         batch = cfg.infer.lnet_batch_size
         out = []
@@ -415,6 +422,11 @@ class LipSyncPipeline:
             ix = torch.as_tensor(idxs, device=self.device)
             pasted = self._step6(full[ix], boxes_dev[ix], refs[ix], chunks[ix][:, None])
             pasted = pasted.permute(0, 2, 3, 1)  # NHWC uint8
+            if self.models.mouth_restorer is not None:
+                # the boxes and landmarks already on the device: a host copy
+                # here would wait for the card's queue
+                kw = dict(landmarks5=lm5_dev[ix]) if reuse else {}
+                pasted = self.models.mouth_restorer(pasted, boxes_dev[ix], **kw)
             if self.models.final_enhancer is not None:
                 kw = dict(landmarks5=lm5[idxs], det_boxes=boxes[idxs]) if reuse else {}
                 pasted = self.models.final_enhancer(pasted, boxes[idxs], **kw)

@@ -9,6 +9,14 @@
   REFLECT_101 border, run as two banded-matrix matmuls (the border folded
   into the matrices); ``mask_postprocess`` zeroes a border and blurs twice
   with (101, sigma 11).
+- OpenCV's pyramids, NCHW: ``pyr_down`` / ``pyr_up`` are cv2.pyrDown /
+  pyrUp (the 5-tap [1, 4, 6, 4, 1] / 16 filter on both axes, REFLECT_101
+  border; even rows and columns kept, or zero-stuffed and filtered with gain
+  4), each axis one matmul against a matrix with the border and the
+  decimation or stuffing folded in; ``laplacian_pyramid_blend`` is
+  Laplacian_Pyramid_Blending_with_mask
+  (inference_utils.py:181-222), the Step-6 mouth blend and the enhancer's
+  ``possion_blending`` composite.
 """
 
 from __future__ import annotations
@@ -112,3 +120,95 @@ def mask_postprocess(mask: torch.Tensor, thres: int = 20) -> torch.Tensor:
     m = torch.zeros_like(mask)
     m[..., thres:h - thres, thres:w - thres] = mask[..., thres:h - thres, thres:w - thres]
     return gaussian_blur(gaussian_blur(m, 101, 11.0), 101, 11.0)
+
+
+_PYR_TAPS = (1.0 / 16, 4.0 / 16, 6.0 / 16, 4.0 / 16, 1.0 / 16)
+
+
+@functools.lru_cache(maxsize=None)
+def _reflect_index(n: int, pad: int) -> np.ndarray:
+    """Source indices of an axis of ``n`` padded by ``pad`` on each side with
+    REFLECT_101, as numpy's and jnp.pad's ``mode="reflect"`` build them:
+    when ``pad`` exceeds ``n - 1`` the reflection repeats (a 2-element axis
+    padded by 2 reads 0 1 0 1 0 1, a 1-element axis repeats its value),
+    which the pyramids' 2x2 and 1x1 levels need and F.pad refuses."""
+    if n == 1:
+        return np.zeros(n + 2 * pad, np.int64)
+    j = np.abs(np.arange(-pad, n + pad)) % (2 * (n - 1))
+    return np.where(j >= n, 2 * (n - 1) - j, j)
+
+
+@functools.lru_cache(maxsize=None)
+def _pyr_matrix(n: int, up: bool) -> np.ndarray:
+    """One axis of cv2.pyrDown (``up`` False: [ceil(n / 2), n], the 5-tap
+    filter's even outputs) or of cv2.pyrUp (``up``: [2n, n], the filter
+    times 2 over the zero-stuffed axis; the two axes make pyrUp's gain of
+    4) as a matrix, with the REFLECT_101 border folded in."""
+    size = 2 * n if up else n
+    src = _reflect_index(size, 2)  # padded position -> source index
+    rows = 2 * n if up else (n + 1) // 2
+    m = np.zeros((rows, n), np.float64)
+    for i in range(rows):
+        centre = i if up else 2 * i
+        for t, k in enumerate(_PYR_TAPS):
+            j = src[centre + t]
+            if not up:
+                m[i, j] += k
+            elif j % 2 == 0:  # the stuffed zeros add nothing
+                m[i, j // 2] += 2.0 * k
+    return m.astype(np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def _pyr_matrix_on(n: int, up: bool, device: torch.device) -> torch.Tensor:
+    """``_pyr_matrix`` on ``device``, copied there once (a pageable copy at
+    every call would make the host wait for the card's queue)."""
+    return torch.from_numpy(_pyr_matrix(n, up)).to(device)
+
+
+def _pyr(x: torch.Tensor, up: bool) -> torch.Tensor:
+    """Both axes of [B, C, H, W] through ``_pyr_matrix``: two matmuls, f32
+    (cuBLAS keeps f32 unless TF32 is allowed for matmuls, which PyTorch
+    does not by default)."""
+    h, w = x.shape[-2:]
+    x = torch.matmul(_pyr_matrix_on(h, up, x.device), x)
+    return torch.matmul(x, _pyr_matrix_on(w, up, x.device).t())
+
+
+def pyr_down(x: torch.Tensor) -> torch.Tensor:
+    """cv2.pyrDown on [B, C, H, W]: blur, keep the even rows and columns ->
+    [B, C, ceil(H / 2), ceil(W / 2)]."""
+    return _pyr(x, up=False)
+
+
+def pyr_up(x: torch.Tensor) -> torch.Tensor:
+    """cv2.pyrUp on [B, C, H, W]: zero-stuff to [B, C, 2H, 2W], then blur
+    with the kernel times 4."""
+    return _pyr(x, up=True)
+
+
+def laplacian_pyramid_blend(a: torch.Tensor, b: torch.Tensor, mask: torch.Tensor,
+                            num_levels: int = 10) -> torch.Tensor:
+    """Blend ``a`` over ``b`` [B, C, H, W] (0..255) by ``mask`` [B, 1, H, W]
+    or [B, H, W] (0..1) through Laplacian pyramids.
+
+    The reference's quirk is kept: the base is Gaussian level
+    ``num_levels - 1`` and the levels run from there down to 1, so level
+    ``num_levels``, which the reference computes and never reads, is left
+    out."""
+    if mask.dim() == 3:
+        mask = mask[:, None]
+    c = a.shape[1]
+
+    def blend(ab, m):
+        return ab[:, :c] * m + ab[:, c:2 * c] * (1.0 - m)
+
+    # a, b and the mask share one Gaussian pyramid (the filter is per channel)
+    gp = [torch.cat([a, b, mask], dim=1)]
+    for _ in range(num_levels - 1):
+        gp.append(pyr_down(gp[-1]))
+    out = blend(gp[-1], gp[-1][:, 2 * c:])
+    for i in range(num_levels - 1, 0, -1):
+        lap = gp[i - 1][:, :2 * c] - pyr_up(gp[i][:, :2 * c])
+        out = pyr_up(out) + blend(lap, gp[i - 1][:, 2 * c:])
+    return out

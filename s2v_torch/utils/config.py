@@ -1,6 +1,7 @@
 """Configuration read by the port's pipeline: the subset of
-s2v_tpu/utils/config.py that the Step-6 + final-enhancement slice uses, as
-frozen dataclasses with the same names, fields and defaults."""
+s2v_tpu/utils/config.py that its steps read (Steps 1-6 and the final
+enhancement), as frozen dataclasses with the same names, fields and
+defaults."""
 
 from __future__ import annotations
 
@@ -37,8 +38,10 @@ class AudioConfig:
 class ModelConfig:
     img_size: int = 384          # ENet working crop
     dtype: str = "bfloat16"      # compute dtype of the generators on the card
-    # reuse the pipeline's 68-point landmark sweeps (mapped to 5 points) in
-    # the final enhancer instead of a RetinaFace pass
+    # reuse the pipeline's 68-point landmark sweeps (mapped to 5 points)
+    # instead of RetinaFace passes: one sweep of the stabilised frames feeds
+    # Step 5's enhancer and the reference faces, and the Step-1 landmarks
+    # feed the mouth tail and the final enhancer
     reuse_detections: bool = False
 
 

@@ -153,6 +153,17 @@ def _modconv(d, prefix: str, sd: StateDict) -> None:
     _linear(d["modulation"], f"{prefix}.modulation", sd)
 
 
+def _styleconv_from_jax(d, prefix: str, sd: StateDict) -> None:
+    _modconv(d["modulated_conv"], f"{prefix}.modulated_conv", sd)
+    sd[f"{prefix}.weight"] = _t(d["noise_weight"])
+    sd[f"{prefix}.bias"] = _t(np.asarray(d["bias"]).reshape(1, -1, 1, 1))
+
+
+def _torgb_from_jax(d, prefix: str, sd: StateDict) -> None:
+    _modconv(d["modulated_conv"], f"{prefix}.modulated_conv", sd)
+    sd[f"{prefix}.bias"] = _t(np.asarray(d["bias"]).reshape(1, 3, 1, 1))
+
+
 def enet_from_jax(variables) -> StateDict:
     """s2v_tpu ENet variables (with the wrapped LNet under ``low_res``) ->
     ENet state_dict."""
@@ -167,14 +178,9 @@ def enet_from_jax(variables) -> StateDict:
     _conv(se["final_conv"], "final_conv", sd)
     _linear(se["final_linear"], "final_linear", sd)
     for k in range(4):
-        sc = p[f"style_conv{k}"]
-        _modconv(sc["modulated_conv"], f"style_convs.{k}.modulated_conv", sd)
-        sd[f"style_convs.{k}.weight"] = _t(sc["noise_weight"])
-        sd[f"style_convs.{k}.bias"] = _t(np.asarray(sc["bias"]).reshape(1, -1, 1, 1))
+        _styleconv_from_jax(p[f"style_conv{k}"], f"style_convs.{k}", sd)
     for k in range(2):
-        rgb = p[f"to_rgb{k}"]
-        _modconv(rgb["modulated_conv"], f"to_rgbs.{k}.modulated_conv", sd)
-        sd[f"to_rgbs.{k}.bias"] = _t(np.asarray(rgb["bias"]).reshape(1, 3, 1, 1))
+        _torgb_from_jax(p[f"to_rgb{k}"], f"to_rgbs.{k}", sd)
     low = {"params": p["low_res"],
            "batch_stats": variables.get("batch_stats", {}).get("low_res", {})}
     sd.update(lnet_from_jax(low, prefix="low_res."))
@@ -443,4 +449,46 @@ def retinaface_from_jax(variables) -> StateDict:
     for i in range(3):
         for head in ("BboxHead", "ClassHead", "LandmarkHead"):
             _conv(p[f"{head}{i}"], f"{head}.{i}.conv1x1", sd)
+    return sd
+
+
+def gfpgan_clean_from_jax(variables) -> StateDict:
+    """s2v_tpu GFPGANv1Clean variables -> GFPGANv1Clean state_dict (the
+    reference's key names), the inverse of ``convert_gfpgan_clean``.
+
+    s2v_tpu's converter drops two parts of the checkpoint that inference
+    never runs: the U-Net's ``toRGB.{i}`` heads and the decoder's
+    ``stylegan_decoder.noises.noise{i}`` buffers. They come back here as
+    zeros of their reference shapes, so that the load is strict."""
+    p = variables["params"]
+    sd: StateDict = {}
+    for name in ("conv_body_first", "final_conv"):
+        _conv(p[name], name, sd)
+    _linear(p["final_linear"], "final_linear", sd)
+    n = sum(1 for k in p if k.startswith("conv_body_down"))
+    for i in range(n):
+        for part in ("down", "up"):
+            for c in ("conv1", "conv2", "skip"):
+                _conv(p[f"conv_body_{part}{i}"][c], f"conv_body_{part}.{i}.{c}", sd)
+        for kind in ("scale", "shift"):
+            for j in (0, 2):
+                _conv(p[f"condition_{kind}{i}_{j}"], f"condition_{kind}.{i}.{j}", sd)
+        cout = np.asarray(p[f"conv_body_up{i}"]["conv2"]["weight"]).shape[-1]
+        sd[f"toRGB.{i}.weight"] = torch.zeros(3, cout, 1, 1)
+        sd[f"toRGB.{i}.bias"] = torch.zeros(3)
+    dec, pre = p["stylegan_decoder"], "stylegan_decoder"
+    sd[f"{pre}.constant_input.weight"] = _t(
+        np.transpose(np.asarray(dec["constant_input"]), (0, 3, 1, 2)))
+    _styleconv_from_jax(dec["style_conv1"], f"{pre}.style_conv1", sd)
+    _torgb_from_jax(dec["to_rgb1"], f"{pre}.to_rgb1", sd)
+    n_mlp = sum(1 for k in dec if k.startswith("style_mlp"))
+    for i in range(n_mlp):
+        _linear(dec[f"style_mlp{i}"], f"{pre}.style_mlp.{2 * i + 1}", sd)
+    for k in range(2 * n):
+        _styleconv_from_jax(dec[f"style_convs{k}"], f"{pre}.style_convs.{k}", sd)
+    for k in range(n):
+        _torgb_from_jax(dec[f"to_rgbs{k}"], f"{pre}.to_rgbs.{k}", sd)
+    for i in range(2 * n + 1):
+        res = 2 ** ((i + 5) // 2)
+        sd[f"{pre}.noises.noise{i}"] = torch.zeros(1, 1, res, res)
     return sd

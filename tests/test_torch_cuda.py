@@ -405,3 +405,94 @@ def test_step5_enhancer_on_the_card_matches_the_cpu(card):
     assert out["cuda"].shape == (4, 256, 256, 3) and out["cuda"].dtype == torch.uint8
     assert (d > 1).float().mean().item() <= 1e-3 and d.mean().item() < 0.01
     assert (out["cpu"] != frames).any()  # the crops went back through the masks
+
+
+def _slim_tail(seed=12):
+    """The slim mouth tail's modules: GFPGANv1Clean at out_size 64 with its
+    ToRGB layers scaled by 0.25 (random weights would put part of the
+    output outside [-1, 1], where the restored face is exact 0s and 255s
+    and the uint8 truncation of their paste turns on the last f32 bit),
+    RetinaFace cfg_mnet with its level-2 face logit raised, and a slim
+    ParseNet with class 11 (255 in the mouth colormap) raised, so the
+    mouth mask covers the boxes."""
+    from s2v_torch.models.gfpgan import GFPGANv1Clean
+    from s2v_torch.models.layers import ToRGB
+    from s2v_torch.models.parsenet import ParseNet
+
+    torch.manual_seed(seed)
+    gfpgan = GFPGANv1Clean(out_size=64, num_style_feat=64, channel_multiplier=0.5, narrow=0.5)
+    parsenet = ParseNet(base_ch=16, max_ch=32, min_ch=8, res_depth=2)
+    with torch.no_grad():
+        for m in gfpgan.modules():
+            if isinstance(m, ToRGB):
+                m.modulated_conv.weight *= 0.25
+                m.bias *= 0.25
+        parsenet.out_mask_conv.conv2d.bias[11] += 1.0
+    return dict(gfpgan=gfpgan.eval(), retinaface=_retinaface("mnet"), parsenet=parsenet.eval())
+
+
+@pytest.mark.cuda
+def test_gfpgan_clean_on_the_card_matches_the_cpu(card):
+    """GFPGANv1Clean at out_size 64 (slim) and 128 (channel_multiplier 2,
+    narrow 0.5), f32 without TF32: 1e-4 of the output's scale."""
+    from s2v_torch.models.gfpgan import GFPGANv1Clean
+
+    torch.manual_seed(13)
+    for kw in (dict(out_size=64, num_style_feat=64, channel_multiplier=0.5, narrow=0.5),
+               dict(out_size=128, num_style_feat=128, channel_multiplier=2, narrow=0.5,
+                    num_mlp=4)):
+        model = GFPGANv1Clean(**kw).eval()
+        x = torch.rand(2, 3, kw["out_size"], kw["out_size"]) * 2 - 1
+        with torch.no_grad():
+            want = model(x)
+            got = model.to(card)(x.to(card)).cpu()
+        assert got.shape == want.shape
+        assert (got - want).abs().max().item() <= 1e-4 * max(1.0, want.abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_landmarks", [False, True])
+def test_mouth_hook_on_the_card_matches_the_cpu(card, with_landmarks):
+    """The mouth hook at slim widths, f32, detecting (every face valid) and
+    with landmarks5: within one gray level (at most 0.1% of subpixels off by
+    more than 1, a mean difference under 0.01); the tail moved the boxes'
+    pixels."""
+    from s2v_torch.pipeline.restoration import make_mouth_restorer
+
+    models = _slim_tail()
+    frames = _frames(4, 96, 112, 14)
+    boxes = np.tile(np.asarray([26, 18, 86, 80], np.float32), (4, 1))
+    kw = {}
+    if with_landmarks:
+        rng = np.random.RandomState(15)
+        kw["landmarks5"] = (np.asarray([[38, 40], [72, 40], [56, 56], [42, 70], [70, 70]],
+                                       np.float32) + rng.randn(4, 5, 2).astype(np.float32))
+    out = {}
+    for dev in ("cpu", card):
+        hook = make_mouth_restorer(models, chunk=3, parse_size=128, dtype="float32",
+                                   device=dev)
+        if not with_landmarks:
+            with torch.no_grad():
+                _, _, valid = hook.restorer._detect(frames.to(dev).permute(0, 3, 1, 2).float())
+            assert valid.all()
+        out[str(dev)] = hook(frames, boxes, **kw).cpu()
+    d = (out["cuda"].int() - out["cpu"].int()).abs().float()
+    assert out["cuda"].shape == (4, 96, 112, 3) and out["cuda"].dtype == torch.uint8
+    assert (d > 1).float().mean().item() <= 1e-3 and d.mean().item() < 0.01
+    change = (out["cpu"][:, 18:80, 26:86].int() - frames[:, 18:80, 26:86].int()).abs()
+    assert change.float().mean().item() > 5.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hw,levels", [((512, 512), 10), ((256, 512), 9), ((96, 128), 6)])
+def test_laplacian_pyramid_blend_on_the_card_matches_the_cpu(card, hw, levels):
+    """The blend down to 1x1 (1x2 non-square), f32: within 1e-3 on 0..255."""
+    from s2v_torch.pipeline.utils import laplacian_pyramid_blend
+
+    g = torch.Generator().manual_seed(16)
+    a, b = [torch.rand(2, 3, *hw, generator=g) * 255 for _ in range(2)]
+    mask = torch.rand(2, 1, *hw, generator=g)
+    want = laplacian_pyramid_blend(a, b, mask, levels)
+    got = laplacian_pyramid_blend(a.to(card), b.to(card), mask.to(card), levels).cpu()
+    assert got.shape == want.shape == (2, 3, *hw)
+    assert (got - want).abs().max().item() <= 1e-3

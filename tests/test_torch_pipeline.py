@@ -37,8 +37,7 @@ from s2v_tpu.models.rrdbnet import RRDBNet
 from s2v_tpu.pipeline.enhance import FaceEnhancer
 from s2v_tpu.pipeline.inference import LipSyncPipeline, PipelineModels
 from s2v_tpu.utils.config import PipelineConfig, override
-from test_pipeline_e2e import synthetic_landmarks
-from torch_parity import random_variables
+from torch_parity import fixed_landmarks, random_variables
 
 N, H, W = 6, 96, 112
 IN_SIZE, PARSE = 64, 128
@@ -60,8 +59,8 @@ def slice_inputs(n=N, seconds=0.35):
            * (1 + 0.5 * np.sin(2 * np.pi * 3 * t))).astype(np.float32)
     mel = np.array(melspectrogram(jnp.asarray(wav)))
     return dict(stab=stab, frames=frames, mel=mel, coords=(8, 88, 10, 100),
-                boxes=boxes, lms_full=synthetic_landmarks(n, H, W),
-                lms_stab=synthetic_landmarks(n, 256, 256))
+                boxes=boxes, lms_full=fixed_landmarks(n, H, W, seed=8),
+                lms_stab=fixed_landmarks(n, 256, 256, seed=9))
 
 
 def synthesize_both(x):

@@ -278,8 +278,7 @@ def test_enhance_reference_calls_the_hook_as_run_does(reuse):
 
 
 def test_enhancer_refuses_what_the_port_does_not_run(weights):
-    """No detector and no landmarks; GPEN asked for but not given; the
-    Laplacian blend (no SR) that belongs to the mouth tail."""
+    """No detector and no landmarks; GPEN asked for but not given."""
     frames = stab_frames()[:1]
     models = port_models(weights, weights["retinaface"])
     del models["retinaface"]
@@ -290,5 +289,3 @@ def test_enhancer_refuses_what_the_port_does_not_run(weights):
     lm5 = lm68_to_lm5(synthetic_landmarks(1, 256, 256)).astype(np.float32)
     with pytest.raises(ValueError, match="facegan"):
         enh.process_batch(frames, landmarks5=lm5)
-    with pytest.raises(NotImplementedError, match="laplacian_pyramid_blend"):
-        enh.process_batch(frames, possion_blending=True, landmarks5=lm5)

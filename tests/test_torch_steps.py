@@ -14,7 +14,12 @@ ten times the largest difference measured between the two packages' S3FD
 scores (3.8e-6) and heatmaps (8.6e-7 of their scale) on these models; at
 least 95% of the landmarks must qualify. Step 6 builds its reference faces
 from all the landmarks it sweeps, so the clip is chosen so that every
-margin of the stabilised frames holds, which that test asserts. Then: boxes
+margin of the stabilised frames holds, which that test asserts, with room
+to spare: its seed (41) gives margins of 5.7 times their tolerance or more
+(the boxes' 19.1; the test prints them). The landmarks that set geometry
+come from ``fixed_landmarks``, whose jitter has a seed of its own: drawn
+from test_pipeline_e2e's shared RandomState they depended on the files an
+xdist worker ran before, and so did the margins. Then: boxes
 and landmarks within 1e-3 px (a flipped argmax or +-0.25 step would move a
 landmark by a quarter of a heatmap pixel, over 0.25 px here; the rest is
 f32 rounding through the boxes); crops and stabilised frames
@@ -47,10 +52,9 @@ from s2v_tpu.models.fan import FAN
 from s2v_tpu.models.resnet import ReconNet
 from s2v_tpu.models.s3fd import S3FD
 from s2v_tpu.utils.config import PipelineConfig, override
-from test_pipeline_e2e import synthetic_landmarks
 from test_torch_models import load
 from test_torch_pipeline import ENET_KW, PARSE_KW, RRDB_KW, assert_close_frames
-from torch_parity import random_variables
+from torch_parity import fixed_landmarks, random_variables
 
 N, H, W = 4, 256, 256
 LM3D = np.asarray([[-0.3, 0.2, 0.1], [0.3, 0.2, 0.1], [0.0, 0.0, 0.3],
@@ -99,7 +103,7 @@ def jax_fan_one_module(fn, *args, **kw):
         j_inf.FAN = orig
 
 
-def clip(seed=14):
+def clip(seed=41):
     rng = np.random.RandomState(seed)
     yy, xx = np.mgrid[0:H, 0:W]
     base = np.stack([xx * 255.0 / W, yy * 255.0 / H, (xx + yy) * 127.0 / (H + W)], -1)
@@ -133,14 +137,14 @@ def chain(pipes):
                                                      return_boxes=True)
     out["t_lm"], out["t_boxes"] = tpipe.extract_landmarks(frames, return_boxes=True)
     out["margins"] = margins(tpipe, frames)
-    first_lm = synthetic_landmarks(1, H, W)[0]
+    first_lm = fixed_landmarks(1, H, W, seed=56)[0]
     out["j_f256"], out["j_coords"] = jpipe.ffhq_crop(frames, first_lm)
     out["t_f256"], out["t_coords"] = tpipe.ffhq_crop(frames, first_lm)
     f256 = out["j_f256"]
     out["j_lm256"] = jax_fan_one_module(jpipe.extract_landmarks, f256)
     out["t_lm256"] = tpipe.extract_landmarks(torch.tensor(f256))  # a tensor goes too
     out["margins256"] = margins(tpipe, f256)
-    lm = synthetic_landmarks(N, 256, 256)
+    lm = fixed_landmarks(N, 256, 256, seed=57)
     lm[1] = -1.0  # the no-face sentinel: lm3d's own landmarks
     out["j_sem"] = jpipe.extract_coeffs(f256, lm, batch=4)
     out["t_sem"] = tpipe.extract_coeffs(f256, lm, batch=3)
@@ -202,8 +206,11 @@ def test_chained_synthesize_detects_when_nothing_is_supplied(pipes, chain):
     frames), no final stage."""
     jpipe, tpipe = pipes
     stab = chain["j_stabFalse"]
+    box_margin, box_tol, hm_margin, hm_tol = held = margins(tpipe, stab)
+    print(f"stabilised frames' margins over their tolerance: boxes "
+          f"{box_margin.min() / box_tol:.1f}, heatmaps {hm_margin.min() / hm_tol:.1f}")
     assert_detections_match(jax_fan_one_module(jpipe.extract_landmarks, stab),
-                            tpipe.extract_landmarks(stab), margins(tpipe, stab), every=True)
+                            tpipe.extract_landmarks(stab), held, every=True)
     np.testing.assert_allclose(tpipe.detect_boxes(chain["frames"]),
                                jpipe.detect_boxes(chain["frames"]), atol=1e-3)
     t = np.arange(int(0.3 * 16000)) / 16000.0
@@ -270,4 +277,4 @@ def test_missing_face_and_missing_landmarks_raise(pipes):
         hooked.synthesize(np.zeros((1, 256, 256, 3), np.uint8), torch.zeros(80, 40),
                           np.zeros((1, 64, 64, 3), np.uint8), (0, 64, 0, 64), 25.0,
                           boxes_full=np.asarray([[8, 8, 56, 56]], np.float32),
-                          lms_stab=synthetic_landmarks(1, 256, 256))
+                          lms_stab=fixed_landmarks(1, 256, 256, seed=58))

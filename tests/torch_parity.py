@@ -30,3 +30,20 @@ def random_variables(model, *shapes, seed=0, equalized=False):
             v = r if k[-1] == "constant_input" else 0.1 * r
         out[k] = np.asarray(v, np.float32)
     return traverse_util.unflatten_dict(out)
+
+
+def fixed_landmarks(n, h, w, seed):
+    """tests/test_pipeline_e2e.py's ``synthetic_landmarks`` with its per-frame
+    jitter drawn from a RandomState of its own. That module's shared
+    RandomState advances with every call in the process, so under xdist
+    the landmarks a test got depended on which files its worker ran before
+    (and with them the FFHQ crop, the stabilised frames and their argmax
+    margins)."""
+    import test_pipeline_e2e as e2e
+
+    shared = e2e.RNG
+    e2e.RNG = np.random.RandomState(seed)
+    try:
+        return e2e.synthetic_landmarks(n, h, w)
+    finally:
+        e2e.RNG = shared
