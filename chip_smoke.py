@@ -89,11 +89,32 @@ result line:
    detection, restore + paste and parse + blend; the final stage's
    RetinaFace pass timed alone (CUDA events and a synchronised host clock),
    so nothing synchronises inside the final stage or the tail.
-8. train reference: one R1 d_step, one g_step and one plain d_step of
+8. cli: the ``infer`` command at full width from checkpoint files. The
+   slice's seeded modules (and a GPEN-BFR-512, whose presence enables Step
+   5) are saved with ``torch.save`` as reference-format files in a
+   temporary directory outside the checkout (the weight edits above travel
+   in the files), with BFM/similarity_Lm3D_all.mat and expression.mat
+   holding the synthetic lm3d and a zero expression; the slice's clip is
+   written as .npz and .wav. Then ``s2v_torch.cli.main(["infer", ...])``
+   runs three times with one --tmp_dir: cold, warm (the artifact cache
+   hit: Steps 1-3 and 5 must not be called, counted per method) and with
+   --re_preprocess. Landmark-driven geometry comes from the random FAN
+   (the CLI has no injection): the S3FD box is the corner anchor's, so the
+   FFHQ quad covers a ~20 px corner of the frame. Each run: 7 frames of
+   1024x1024x3 uint8 out, K1 and K3 launched 38 and 27 times per frame,
+   every face valid in Step 5, the mouth tail and the final stage, and an
+   output within one gray level of the cold run's for all but 0.1% of its
+   subpixels. Then ``LipSyncPipeline.run`` three times more on the models
+   the last ``main`` loaded (the same checks), the third with the landmark
+   sweeps under torch.profiler. Printed: load_models seconds, each run's
+   wall and frames/s, per-step wall (synchronised at each step's ends),
+   peak memory, the allocator segments each run added, the profiled
+   sweep's top kernels.
+9. train reference: one R1 d_step, one g_step and one plain d_step of
    ``s2v_torch.train.gan.make_gan_trainer`` at slim widths on the card and
    on the CPU from the same weights and batch; metrics and every parameter
    gradient must agree.
-9. train: GPEN-BFR-512 (FullGenerator and Discriminator at full width,
+10. train: GPEN-BFR-512 (FullGenerator and Discriminator at full width,
    random weights from a fixed seed), batch 4 at 512^2 from
    ``face_batches`` over 8 synthetic faces, step pairs 0-16 (R1 at 0 and
    16), f32. The launch counts are reset just before and read just after;
@@ -103,8 +124,8 @@ result line:
 
 Every time printed stands beside the card's name and power limit (printed
 first). The line before the last is one JSON object with every kernel's
-numbers, its launches summed over both main paths (inference slice and
-training) and split by path; the last is ``{"ok": true, "device": {...}}``. Details go to
+numbers, its launches summed over the main paths (the inference slice, the
+CLI's cold run and training) and split by path; the last is ``{"ok": true, "device": {...}}``. Details go to
 chiprun_out/chip_smoke.json. TF32 is off throughout (f32 convs and matmuls
 run in full f32; the pipeline keeps S3FD, FAN and ReconNet so regardless).
 """
@@ -1250,6 +1271,195 @@ def phase_slice(torch, card):
     return launches, per
 
 
+# the LipSyncPipeline methods the CLI phase times per run (landmark sweeps:
+# Step 1's, the FFHQ crops' and, inside synthesize, the reference faces')
+CLI_STEPS = dict(extract_landmarks="landmark_sweeps", ffhq_crop="ffhq_crop",
+                 extract_coeffs="coeffs", stabilize="dnet", enhance_reference="step5",
+                 synthesize="synthesize")
+
+
+def write_wav(path, wav):
+    import wave
+
+    pcm = (np.clip(wav, -1.0, 1.0) * 32767).astype(np.int16)
+    with wave.open(str(path), "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(16000)
+        w.writeframes(pcm.tobytes())
+
+
+def phase_cli(torch, card):
+    """The ``infer`` command at full width from checkpoint files: the slice's
+    seeded modules saved as reference-format files in a temporary directory
+    (with GPEN-BFR-512, which enables Step 5, the BFM landmarks and a zero
+    expression), the slice's clip as .npz and .wav, then
+    ``s2v_torch.cli.main(["infer", ...])`` three times with one --tmp_dir:
+    cold, warm (the artifact cache hit: Steps 1-3 and 5 not called) and
+    with --re_preprocess. Landmark-driven geometry comes from the random
+    FAN here (the CLI has no injection)."""
+    import shutil
+    import tempfile
+
+    from s2v_torch import cli
+    from s2v_torch.models.gpen import FullGenerator
+
+    t = time.perf_counter()
+    models = full_models(torch)
+    steps = steps_models(torch, slim=False, face_bias=20.0)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        gpen512 = FullGenerator(size=512)
+    work = Path(tempfile.mkdtemp(prefix="s2v_cli_"))
+    try:
+        ckpt = cli.write_checkpoint_dir(
+            str(work / "checkpoints"),
+            dict(steps, enet=models["enet"], retinaface=models["retinaface"],
+                 parsenet=models["parsenet"], gfpgan=models["gfpgan"], gpen512=gpen512,
+                 gpen2048=models["facegan"], srmodel=models["srmodel"]),
+            lm3d=LM3D, expression=np.zeros(64, np.float32))
+        size_gb = sum(f.stat().st_size for f in Path(ckpt).rglob("*") if f.is_file()) / 1e9
+        del models, steps, gpen512
+        x = clip_inputs(8, 512, 512, 0.4, seed=0)
+        np.savez(work / "clip.npz", frames=x["frames"], fps=25.0)
+        write_wav(work / "speech.wav", x["wav"])
+        print(f"cli: wrote {size_gb:.2f} GB of checkpoints and the clip in "
+              f"{time.perf_counter() - t:.1f} s")
+        return run_cli(torch, card, work, ckpt)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def run_cli(torch, card, work, ckpt):
+    """The CLI phase's runs and checks (``phase_cli``)."""
+    from s2v_torch import cli
+    from s2v_torch.ops.kernels import launch_counts, reset_launch_counts
+    from s2v_torch.pipeline.inference import LipSyncPipeline as pipeline_cls
+
+    real_load = cli.load_models
+    loads, last, valid = [], {}, {"step5": [], "mouth": [], "final": []}
+
+    def record(m):
+        record_valid(m.ref_enhancer.enhancer, valid["step5"])
+        record_valid(m.mouth_restorer.restorer, valid["mouth"])
+        record_valid(m.final_enhancer.enhancer, valid["final"])
+
+    def load_models(*a, **k):
+        """load_models timed; the run's enhancers record their valid faces."""
+        last.clear()  # the previous run's models go before these load
+        t0 = time.perf_counter()
+        m = last["models"] = real_load(*a, **k)
+        torch.cuda.synchronize()
+        loads.append(time.perf_counter() - t0)
+        record(m)
+        return m
+
+    calls = {}
+    clock = {}
+    originals = {attr: getattr(pipeline_cls, attr) for attr in CLI_STEPS}
+    for attr, name in CLI_STEPS.items():
+        def counted(*a, _fn=originals[attr], _name=name, **k):
+            calls[_name] = calls.get(_name, 0) + 1
+            return _fn(*a, **k)
+        setattr(pipeline_cls, attr, counted)
+    clock_methods(pipeline_cls, lambda: clock["now"], CLI_STEPS)
+    cli.load_models = load_models
+    argv = ["infer", "--face", str(work / "clip.npz"), "--audio", str(work / "speech.wav"),
+            "--checkpoint_dir", ckpt, "--tmp_dir", str(work / "tmp")]
+    runs = []
+
+    def timed(label, fn, profile=None):
+        calls.clear()
+        for v in valid.values():
+            v.clear()
+        clock["now"] = StepClock(torch, profile)
+        torch.cuda.reset_peak_memory_stats()
+        segments = torch.cuda.memory_stats().get("segment.all.allocated", 0)
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, load_s = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        runs.append(dict(label=label, out=out, frames=np.load(out)["frames"], main_s=wall,
+                         load_s=load_s, run_s=wall - load_s, launches=launch_counts(),
+                         calls=dict(calls), step_ms=dict(clock["now"].ms),
+                         valid={k: valid_count(v) for k, v in valid.items()},
+                         peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                         new_segments=torch.cuda.memory_stats().get("segment.all.allocated", 0)
+                         - segments, device_ms=dict(clock["now"].device_ms),
+                         top={k: [dict(name=n[:90], calls=c, ms=m) for n, c, m in rows[:8]]
+                              for k, rows in clock["now"].rows.items()}))
+
+    try:
+        for label, extra in (("cold", []), ("warm", []), ("re_preprocess", ["--re_preprocess"])):
+            timed(label, lambda: (cli.main(argv + ["--outfile", str(work / f"{label}.npz"),
+                                                   *extra]), loads[-1]))
+        # the warm run twice more on the models the last main() loaded: what
+        # a run costs once the process has run one
+        pipe = pipeline_cls(cli.parse_args(argv[1:]), last.pop("models"))
+        for i, profile in ((1, None), (2, None), (3, {"landmark_sweeps"})):
+            timed(f"warm, models loaded ({i})",
+                  lambda: (pipe.run(str(work / "clip.npz"), str(work / "speech.wav"),
+                                    str(work / f"loaded{i}.npz")), 0.0), profile)
+        del pipe
+    finally:
+        cli.load_models = real_load
+        for attr, fn in originals.items():
+            setattr(pipeline_cls, attr, fn)
+
+    first = runs[0]["frames"]
+    n = len(first)
+    want = {"fused_act": 38 * n, "fused_act_bwd": 0, "upfirdn2d": 27 * n}
+    ok_shape = first.shape == (7, 1024, 1024, 3) and first.dtype == np.uint8
+    print(f"cli: output {first.shape} {first.dtype}, std {first.std():.2f}; "
+          f"{'ok' if ok_shape and first.std() > 0 else 'FAIL'}")
+    if not ok_shape:
+        fail(f"cli output {first.shape} {first.dtype}, want (7, 1024, 1024, 3) uint8")
+    if not first.std() > 0:
+        fail("cli output is constant")
+    recomputed = {"landmark_sweeps": 3, "ffhq_crop": 1, "coeffs": 1, "dnet": 1, "step5": 1,
+                  "synthesize": 1}
+    cached = {"landmark_sweeps": 1, "synthesize": 1}
+    expect_calls = {"cold": recomputed, "re_preprocess": recomputed, "warm": cached,
+                    **{f"warm, models loaded ({i})": cached for i in (1, 2, 3)}}
+    for r in runs:
+        d = np.abs(r["frames"].astype(np.int32) - first.astype(np.int32))
+        r["subpixels_off_by_more_than_1"] = int((d > 1).sum())
+        r["subpixels_differing"] = int((d > 0).sum())
+        r["frames_per_s"] = n / r["run_s"]
+        steps = ", ".join(f"{k} {v:.1f}" for k, v in r["step_ms"].items())
+        print(f"cli: {r['label']} run: main {r['main_s']:.2f} s = load_models "
+              f"{r['load_s']:.2f} s + run {r['run_s']:.2f} s ({r['frames_per_s']:.2f} frames/s); "
+              f"per step ms (synchronised at each step's ends) {steps}; peak "
+              f"{r['peak_gib']:.1f} GiB, {r['new_segments']} new allocator segments; valid "
+              f"faces {r['valid']}; launches {r['launches']}; "
+              f"{r['subpixels_differing']} subpixels differ from the cold run's "
+              f"({r['subpixels_off_by_more_than_1']} by more than 1); {card}")
+        for step, rows in r["top"].items():
+            print(f"  {step} under torch.profiler: device {r['device_ms'][step]:.1f} ms, top "
+                  "kernels:")
+            for row in rows:
+                print(f"  {row['ms']:8.2f} ms {row['calls']:5d}x  {row['name']}")
+        if r["calls"] != expect_calls[r["label"]]:
+            fail(f"cli {r['label']} run called {r['calls']}, expected "
+                 f"{expect_calls[r['label']]}")
+        if r["launches"] != want:
+            fail(f"cli {r['label']} run launched {r['launches']}, expected {want}")
+        if r["frames"].shape != first.shape or (d > 1).mean() > 1e-3:
+            fail(f"cli {r['label']} run's output is off the cold run's: "
+                 f"{r['subpixels_off_by_more_than_1']} subpixels by more than 1")
+        counts = r["valid"]
+        if r["calls"].get("step5") and counts["step5"] != (8, 8):
+            fail(f"cli {r['label']} run: Step 5 found faces in {counts['step5']} frames")
+        if counts["mouth"] != (n, n) or counts["final"] != (n, n):
+            fail(f"cli {r['label']} run: the mouth tail / final stage found faces in "
+                 f"{counts['mouth']} / {counts['final']} frames")
+    for r in runs:
+        del r["frames"]
+    return runs[0]["launches"], dict(runs=runs)
+
+
 def device_rows(prof):
     """(kernel, calls, device ms) of every device row of a torch.profiler
     run, largest first."""
@@ -1518,6 +1728,8 @@ def main():
     report["retina_reference"] = phase_retina_reference(torch)
     report["mouth_reference"] = phase_mouth_reference(torch, card)
     launches, report["slice"] = phase_slice(torch, card)
+    torch.cuda.empty_cache()
+    cli_launches, report["cli"] = phase_cli(torch, card)
     report["train_reference"] = phase_train_reference(torch)
     train_launches, report["train"] = phase_train(torch, card)
     report["seconds"] = time.perf_counter() - t_start
@@ -1536,8 +1748,9 @@ def main():
         c = main_case(name, dtype)
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=launches[name] + train_launches[name],
-            launches_by_path=dict(slice=launches[name], train=train_launches[name]),
+            launches=launches[name] + cli_launches[name] + train_launches[name],
+            launches_by_path=dict(slice=launches[name], cli=cli_launches[name],
+                                  train=train_launches[name]),
             max_abs_err=max(k["max_abs_err"] for k in cases if k["kernel"] == name),
             ms=c["ms"], plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
             bound_by=c["bound_by"], library_ms=c["library_ms"], shape=c["shape"],

@@ -102,3 +102,21 @@ class DNet(nn.Module):
             output["fake_image"] = self.editing_net(input_image, output["warp_image"],
                                                     descriptor)
         return output
+
+
+def dnet_arch(state_dict) -> DNet:
+    """The DNet geometry of a checkpoint's state_dict (s2v_tpu's
+    ``LipSyncPipeline._dnet_arch``): descriptor width, the stems of the
+    hourglass and the editing net, and the channel cap. Reference
+    checkpoints are the production widths (DNet.py:13-28). Without those
+    keys, the defaults, whose strict load then names them."""
+    try:
+        enc = "warpping_net.hourglass.encoder."
+        return DNet(
+            descriptor_nc=int(state_dict["mapping_net.first.0.weight"].shape[0]),
+            warp_base_nc=int(state_dict[enc + "input_layer.weight"].shape[0]),
+            edit_base_nc=int(state_dict["editing_net.encoder.first.model.0.weight"].shape[0]),
+            max_nc=max(int(v.shape[0]) for k, v in state_dict.items()
+                       if k.startswith(enc + "encoder") and k.endswith(".conv_0.weight")))
+    except (KeyError, ValueError):  # ValueError: max() of no encoder block
+        return DNet()

@@ -85,3 +85,25 @@ class ENet(nn.Module):
             out = self.style_convs[2 * idx + 1](out, style)
             skip = self.to_rgbs[idx](out, style, skip)
         return skip[:, :, 8:-8, 8:-8], low_res
+
+
+def enet_arch(state_dict) -> ENet:
+    """The ENet geometry of a state_dict with its LNet under ``low_res``
+    (s2v_tpu's ``LipSyncPipeline._enet_arch``): the style encoder's widths
+    and the LNet's depth and widths. Reference checkpoints are the
+    production geometry (ENet.py:22-32). Without those keys, the defaults,
+    whose strict load then names them."""
+    try:
+        narrow = int(state_dict["final_conv.weight"].shape[0]) / 512.0
+        ch128 = int(state_dict["conv_body_first.weight"].shape[0])
+        enc = "low_res.encoder."
+        return ENet(
+            num_style_feat=int(state_dict["final_linear.weight"].shape[0]),
+            lnet_res_blocks=len({k.split(".")[3] for k in state_dict
+                                 if k.startswith("low_res.decoder.res2.")}) or 9,
+            channel_multiplier=ch128 / (128.0 * narrow), narrow=narrow,
+            lnet_base_nc=int(state_dict[enc + "first_inp.model.0.weight"].shape[0]),
+            lnet_max_nc=max(int(v.shape[0]) for k, v in state_dict.items()
+                            if k.startswith(enc + "inp_down") and k.endswith("model.0.weight")))
+    except (KeyError, ValueError):  # ValueError: max() of no encoder block
+        return ENet()

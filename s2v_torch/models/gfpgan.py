@@ -173,3 +173,27 @@ class GFPGANv1Clean(nn.Module):
             feat = up(feat + skips[i])
             conditions += [self.condition_scale[i](feat), self.condition_shift[i](feat)]
         return self.stylegan_decoder(style, conditions, input_is_latent=self.input_is_latent)
+
+
+def gfpgan_arch(state_dict, out_size: int = 512) -> GFPGANv1Clean:
+    """The GFPGANv1Clean geometry of a checkpoint's ``params_ema`` (s2v_tpu's
+    ``gfpgan_arch`` with ``arch="clean"``): narrow, channel multiplier, the
+    style MLP's depth and the style width (``different_w``: one style per
+    latent). GFPGANv1.3/1.4 are the production widths (gfpgan/utils.py:43-82).
+    ``out_size`` is the caller's. Without those keys, the defaults, whose
+    strict load then names them."""
+    try:
+        unet_narrow = int(state_dict["final_conv.weight"].shape[0]) / 512.0
+        cm = (int(state_dict["conv_body_first.weight"].shape[0])
+              / _channels(unet_narrow, 1)[out_size])
+        out_dim = int(state_dict["final_linear.weight"].shape[0])
+        n_latent = 2 * int(math.log2(out_size)) - 2
+        num_mlp = sum(1 for k in state_dict
+                      if k.startswith("stylegan_decoder.style_mlp.") and k.endswith(".weight"))
+        return GFPGANv1Clean(
+            out_size=out_size,
+            num_style_feat=out_dim // n_latent if out_dim % n_latent == 0 else out_dim,
+            channel_multiplier=int(cm) if cm == int(cm) else cm,
+            narrow=2.0 * unet_narrow, num_mlp=num_mlp or 8)
+    except (KeyError, ZeroDivisionError):
+        return GFPGANv1Clean(out_size=out_size)

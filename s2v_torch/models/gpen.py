@@ -332,3 +332,24 @@ class Discriminator(nn.Module):
         std = torch.sqrt(out.var(0, unbiased=False) + 1e-8).mean()
         out = torch.cat([out, std.expand(b, 1, h, w).to(out.dtype)], 1)
         return self.final_linear(self.final_conv(out).flatten(1))
+
+
+def fullgenerator_arch(state_dict, size: int = 512) -> FullGenerator:
+    """The FullGenerator geometry of a checkpoint's state_dict (s2v_tpu's
+    ``fullgenerator_arch``): narrow, style_dim, n_mlp and the channel
+    multiplier. GPEN-BFR checkpoints are the production table
+    (gpen_model.py:640-652). ``size`` is the caller's: it is a resolution,
+    not readable from the widths. Without those keys, the defaults at
+    ``size``, whose strict load then names them."""
+    try:
+        narrow = int(state_dict["generator.input.input"].shape[1]) / 512.0
+        kw = dict(size=size, narrow=narrow,
+                  style_dim=int(state_dict["final_linear.0.weight"].shape[0]),
+                  n_mlp=sum(1 for k in state_dict
+                            if k.startswith("generator.style.") and k.endswith(".weight")))
+        if size >= 64:  # the multiplier reaches the table at 64^2 and up
+            cm = int(state_dict["ecd0.0.0.weight"].shape[0]) / channels_table(narrow, 1)[size]
+            kw["channel_multiplier"] = int(cm) if cm == int(cm) else cm
+        return FullGenerator(**kw)
+    except (KeyError, ZeroDivisionError):
+        return FullGenerator(size=size)

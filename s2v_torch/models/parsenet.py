@@ -115,3 +115,21 @@ def parse_mask(logits: torch.Tensor, colormap: Sequence[float]) -> torch.Tensor:
     ties), then the class's colormap value (face_parsing.py tenor2mask)."""
     cmap = torch.as_tensor(colormap, dtype=torch.float32, device=logits.device)
     return cmap[torch.argmax(logits, dim=1)]
+
+
+def parsenet_arch(state_dict) -> ParseNet:
+    """The ParseNet geometry of a checkpoint's state_dict (s2v_tpu's
+    ``parsenet_arch``): stem width, channel clips, body depth and classes.
+    ParseNet-latest is the production geometry (parse_model.py:22-43).
+    Without those keys, the defaults, whose strict load then names them."""
+    def widths(part):
+        return [int(v.shape[0]) for k, v in state_dict.items()
+                if k.startswith(part) and k.endswith(("conv2.conv2d.weight", ".0.conv2d.weight"))]
+
+    try:
+        enc_w, body_w = widths("encoder."), widths("body.")
+        return ParseNet(base_ch=int(state_dict["encoder.0.conv2d.weight"].shape[0]),
+                        min_ch=min(enc_w), max_ch=max(enc_w + body_w), res_depth=len(body_w),
+                        parsing_ch=int(state_dict["out_mask_conv.conv2d.weight"].shape[0]))
+    except KeyError:
+        return ParseNet()

@@ -96,3 +96,17 @@ class ReconNet(nn.Module):
     def forward(self, x):
         feat = self.backbone(x)
         return torch.cat([head(feat) for head in self.final_layers], 1).flatten(1)
+
+
+def recon_arch(state_dict) -> ReconNet:
+    """The ReconNet geometry of a checkpoint's state_dict (s2v_tpu's
+    ``LipSyncPipeline._recon_arch``): blocks per stage and the stem width.
+    Reference checkpoints are ResNet50 (networks.py:69-104). Without the
+    backbone's keys, ResNet50, whose strict load then names them."""
+    try:
+        base = int(state_dict["backbone.conv1.weight"].shape[0])
+    except KeyError:
+        return ReconNet()
+    counts = tuple(len({k.split(".")[2] for k in state_dict
+                        if k.startswith(f"backbone.layer{i}.")}) for i in range(1, 5))
+    return ReconNet(layers=counts, base_planes=base) if all(counts) else ReconNet()

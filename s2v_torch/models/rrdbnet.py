@@ -66,3 +66,19 @@ class RRDBNet(nn.Module):
             h, w = feat.shape[-2:]
             feat = F.leaky_relu(conv(resize_nearest(feat, (2 * h, 2 * w))), 0.2)
         return self.conv_last(F.leaky_relu(self.conv_hr(feat), 0.2))
+
+
+def rrdbnet_arch(state_dict, scale: int = 4, num_out_ch: int = 3) -> RRDBNet:
+    """The RRDBNet geometry of a checkpoint's state_dict (s2v_tpu's
+    ``rrdbnet_arch``): num_feat, num_block and num_grow_ch. ``scale`` is the
+    caller's (x2 and x4 checkpoints differ in their first conv's input
+    only). Without those keys, the defaults, whose strict load then names
+    them."""
+    try:
+        return RRDBNet(num_out_ch=num_out_ch, scale=scale,
+                       num_feat=int(state_dict["conv_first.weight"].shape[0]),
+                       num_block=len({k.split(".")[1] for k in state_dict
+                                      if k.startswith("body.")}),
+                       num_grow_ch=int(state_dict["body.0.rdb1.conv1.weight"].shape[0]))
+    except KeyError:
+        return RRDBNet(scale=scale, num_out_ch=num_out_ch)

@@ -313,6 +313,7 @@ def reference_enhancer_hook(enhancer: FaceEnhancer):
     def hook(frames, **kw):
         return enhancer.process_batch(frames, face_enhance=False, **kw)
 
+    hook.enhancer = enhancer
     return hook
 
 
@@ -328,4 +329,5 @@ def final_enhancer_hook(enhancer: FaceEnhancer):
         return enhancer.process_batch(frames, face_enhance=True, possion_blending=True,
                                       bboxes=bb, **kw)
 
+    hook.enhancer = enhancer
     return hook

@@ -23,6 +23,12 @@ s2v_tpu/pipeline/inference.py ``LipSyncPipeline``):
   RetinaFace (the final one on the bilinear-2x frame), or take the Step-1
   landmarks under ``model.reuse_detections``.
 
+``run(face_path, audio_path, outfile)`` chains them as s2v_tpu's ``run``
+does: the clip file (``s2v_torch.io.video_io``), the ``--crop`` window,
+Steps 1-3 and 5 through the per-video artifact cache
+(``s2v_torch.utils.cache``; Steps 3 and 5 written after Step 6), the wav
+and its mel, Step 6, the frames written and muxed with the audio.
+
 S3FD, FAN and ReconNet run in full f32 (no TF32); DNet and ENet under bf16
 autocast on the card when ``model.dtype`` is bfloat16. Public layout as
 s2v_tpu: NHWC uint8 frames, x1y1x2y2 boxes, [N, 68, 2] landmarks. Frames
@@ -31,14 +37,17 @@ cross to the device once; intermediates stay there as NCHW float tensors.
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
-from typing import Callable, Optional
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
 
-from s2v_torch.audio.melspec import mel_chunks_for_frames, num_mel_chunks
+from s2v_torch.audio.melspec import mel_chunks_for_frames, melspectrogram, num_mel_chunks
 from s2v_torch.device import full_f32, resolve_device
+from s2v_torch.io.audio_io import load_wav
+from s2v_torch.io.video_io import VideoReader, VideoWriter, mux_audio
 from s2v_torch.models.fan import (box_to_center_scale, crop_faces_batched,
                                   heatmaps_to_landmarks, lm68_to_lm5)
 from s2v_torch.models.s3fd import BGR_MEAN, best_boxes, pad_and_smooth_boxes
@@ -48,9 +57,34 @@ from s2v_torch.pipeline.align import (compute_transform, crop_quad_params, ffhq_
                                       quad_from_cxy)
 from s2v_torch.pipeline.face3d_prep import align_img
 from s2v_torch.pipeline.utils import find_crop_norm_ratio, transform_semantic
+from s2v_torch.utils.cache import ArtifactCache
 from s2v_torch.utils.config import PipelineConfig
 
 _MODULES = ("s3fd", "fan", "recon", "dnet", "enet")
+
+# Version of the Steps 1-5 artifact chain, s2v_tpu's: shared by every
+# stage's cache key, so a bump invalidates the whole chain and the two
+# packages name the same artifacts alike.
+_CACHE_VERSION = 3
+
+
+def refuse_unported(cfg: PipelineConfig) -> None:
+    """Raise NotImplementedError for a setting of s2v_tpu's that the port
+    does not have yet, naming its ROADMAP queue: running on without it would
+    give another result than the JAX package's."""
+    unported = [
+        (cfg.parallel.infer_mesh, "parallel.infer_mesh (frame sharding over a mesh)", 4),
+        (cfg.model.approx_warp, "model.approx_warp (the sheared approximate warps)", 5),
+        (cfg.model.detector_dtype != "float32",
+         f"model.detector_dtype={cfg.model.detector_dtype} (detection runs in float32)", 5),
+        (cfg.infer.box[0] != -1, "infer.box (a fixed face box)", 5),  # s2v_tpu's test
+        (cfg.infer.cropped_image, "infer.cropped_image", 5),
+        (cfg.infer.without_rl1, "infer.without_rl1", 5),
+    ]
+    for on, what, queue in unported:
+        if on:
+            raise NotImplementedError(
+                f"s2v_torch does not port {what} yet (ROADMAP.md, queue {queue})")
 
 
 @dataclass
@@ -120,6 +154,7 @@ class LipSyncPipeline:
     def __init__(self, cfg: PipelineConfig, models: PipelineModels, device=None):
         self.cfg = cfg
         self.models = models
+        refuse_unported(cfg)
         self.device = resolve_device(device)
         for name in _MODULES:
             module = getattr(models, name)
@@ -432,3 +467,118 @@ class LipSyncPipeline:
                 pasted = self.models.final_enhancer(pasted, boxes[idxs], **kw)
             out.append(torch.as_tensor(pasted).cpu().numpy())
         return np.concatenate(out)
+
+    # ------------------------------------------------------------------
+    # Full run
+    # ------------------------------------------------------------------
+
+    def run(self, face_path: str, audio_path: str, outfile: str) -> str:
+        """The ``infer`` command (s2v_tpu's ``LipSyncPipeline.run``,
+        reference inference.py main()): the clip file -> Steps 1-6 -> the
+        output file muxed with the audio. Returns the output's path (an
+        ``.npz`` beside ``outfile`` when there is no ffmpeg)."""
+        cfg = self.cfg
+        reader = VideoReader(face_path)
+        frames = reader.read_all()
+        fps = reader.fps or cfg.infer.fps
+        cy1, cy2, cx1, cx2 = cfg.infer.crop  # --crop: top bottom left right
+        if (cy1, cy2, cx1, cx2) != (0, -1, 0, -1):
+            cy2 = frames.shape[1] if cy2 == -1 else cy2
+            cx2 = frames.shape[2] if cx2 == -1 else cx2
+            frames = frames[:, cy1:cy2, cx1:cx2]
+        frames = np.ascontiguousarray(frames)
+
+        # the per-video artifact cache for Steps 1-3 and 5 (the reference's
+        # temp/<base>_{landmarks.txt,coeffs.npy,stablized.npy,enhanced5.npy},
+        # facing.py:89-198): a second run of the clip goes straight to Step
+        # 6; --re_preprocess recomputes. One version in every stage's key,
+        # so fresh Step-1 outputs never meet stale downstream artifacts.
+        base = os.path.splitext(os.path.basename(face_path))[0]
+        cache = ArtifactCache(cfg.infer.tmp_dir)
+        refresh = cfg.infer.re_preprocess
+        crop_p = {"crop": cfg.infer.crop, "v": _CACHE_VERSION}
+
+        # the clip crosses to the card once; the steps chain on tensors
+        # there, and the host sees the cache's artifacts, the alignment's
+        # inputs and the output frames
+        frames_dev = torch.as_tensor(frames, device=self.device)
+        dev: Dict[str, torch.Tensor] = {}
+
+        step_lm = cache.get_or_compute(
+            base, "landmarks",
+            lambda: dict(zip(("lm", "boxes"),
+                             self.extract_landmarks(frames_dev, return_boxes=True))),
+            params=crop_p, refresh=refresh)
+        lm, boxes_full = step_lm["lm"], step_lm["boxes"]
+
+        def compute_ffhq():
+            f256, coords = self.ffhq_crop(frames, lm[0], frames_dev=frames_dev,
+                                          device_out=True)
+            dev["f256"] = f256
+            return {"frames": f256.cpu().numpy(), "coords": np.asarray(coords)}
+
+        step1 = cache.get_or_compute(base, "ffhq", compute_ffhq, params=crop_p,
+                                     refresh=refresh)
+        frames_256 = step1["frames"]
+        f256_dev = dev.get("f256")
+        if f256_dev is None:  # a cache hit crosses once
+            f256_dev = torch.as_tensor(frames_256, device=self.device)
+        coordinates = tuple(int(v) for v in np.asarray(step1["coords"]))
+        semantic = cache.get_or_compute(
+            base, "coeffs",
+            lambda: self.extract_coeffs(frames_256, self.extract_landmarks(f256_dev)),
+            params=crop_p, refresh=refresh)
+
+        def compute_stab():
+            # a deferred write: the host copy starts now and the file is
+            # written after Step 6, so the chain does not wait for it here
+            dev["stab"] = self.stabilize(f256_dev, semantic, one_shot=cfg.infer.one_shot,
+                                         device_out=True)
+            return dev["stab"]
+
+        stabilized = cache.get_or_compute(
+            base, "stabilized", compute_stab,
+            params={**crop_p, "one_shot": cfg.infer.one_shot, "exp_img": cfg.infer.exp_img},
+            refresh=refresh, defer=True)
+        stab_dev = dev.get("stab")
+        if stab_dev is None:
+            stab_dev = torch.as_tensor(stabilized, device=self.device)
+        reuse = cfg.model.reuse_detections
+        lm_stab = {}
+        if self.models.ref_enhancer is not None:
+            def compute_enh():
+                enhanced, lm_stab["lm"] = self.enhance_reference(stab_dev)
+                if torch.is_tensor(enhanced):
+                    dev["enh"] = enhanced
+                    return enhanced  # a deferred write, as compute_stab's
+                return np.asarray(enhanced)
+
+            stabilized = cache.get_or_compute(
+                base, "enhanced5", compute_enh, params={**crop_p, "reuse_det": reuse},
+                refresh=refresh, defer=True)
+            stab_dev = dev.get("enh")
+            if stab_dev is None:
+                stab_dev = torch.as_tensor(stabilized, device=self.device)
+
+        wav = load_wav(audio_path, cfg.audio.sample_rate)
+        mel = melspectrogram(torch.from_numpy(wav).to(self.device), cfg.audio)
+        if not bool(torch.isfinite(mel).all()):
+            raise ValueError("Mel contains nan! Using a TTS voice? Add a small epsilon "
+                             "noise to the wav file and try again")
+
+        try:
+            out = self.synthesize(stab_dev, mel, frames_dev, coordinates, fps,
+                                  boxes_full=boxes_full, lms_full=lm if reuse else None,
+                                  lms_stab=lm_stab.get("lm"))
+        finally:
+            # the deferred Step-3/5 writes: their copies overlapped Step 6,
+            # and a failure in Step 6 keeps the finished artifacts too
+            cache.flush()
+
+        tmp_video = os.path.join(cfg.infer.tmp_dir, "result.npz")
+        os.makedirs(cfg.infer.tmp_dir, exist_ok=True)
+        writer = VideoWriter(tmp_video, fps, out.shape[1:3])
+        for f in out:
+            writer.write(f)
+        writer.close()
+        return mux_audio(writer.path, audio_path, outfile)

@@ -14,7 +14,7 @@
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -40,6 +40,28 @@ def fold_spectral_norm(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         elif not (k.endswith(".weight_u") or k.endswith(".weight_v")):
             out[k] = torch.as_tensor(v)
     return out
+
+
+def load_torch_checkpoint(path: str, key: Optional[str] = "state_dict") -> StateDict:
+    """A reference checkpoint file -> its flat state_dict of CPU tensors
+    (s2v_tpu's ``load_torch_checkpoint``, models/__init__.py:12-27): the
+    entry under ``key`` when the file holds one, ``module.`` prefixes
+    stripped. Reference files pickle more than tensors (optimizer state,
+    epoch counters), so this loads with ``weights_only=False``: read only
+    files you trust."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    if key and isinstance(ckpt, dict) and key in ckpt:
+        ckpt = ckpt[key]
+    return {k.removeprefix("module."): t.detach() for k, t in ckpt.items()}
+
+
+def merge_enet_lnet(enet_sd: StateDict, lnet_sd: StateDict) -> StateDict:
+    """ENet.pth + LNet.pth -> one ENet state_dict, as the reference loads
+    them (models/__init__.py:29-35; s2v_tpu's ``convert_enet``): ENet's own
+    ``low_res`` keys are skipped and LNet.pth fills the wrapped LNet."""
+    sd = {k: v for k, v in enet_sd.items() if not k.startswith("low_res.")}
+    sd.update({f"low_res.{k}": v for k, v in lnet_sd.items()})
+    return sd
 
 
 def load_reference(module: nn.Module, sd: Dict[str, torch.Tensor]) -> nn.Module:

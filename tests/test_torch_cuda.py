@@ -496,3 +496,30 @@ def test_laplacian_pyramid_blend_on_the_card_matches_the_cpu(card, hw, levels):
     got = laplacian_pyramid_blend(a.to(card), b.to(card), mask.to(card), levels).cpu()
     assert got.shape == want.shape == (2, 3, *hw)
     assert (got - want).abs().max().item() <= 1e-3
+
+
+@pytest.mark.cuda
+def test_deferred_cache_writes_wait_for_their_pinned_copies(card, tmp_path):
+    """``ArtifactCache(defer=True)`` on CUDA tensors queued behind a long
+    run of work: the copies go to pinned memory without waiting, and flush()
+    writes each file only after its copy is done, so the bytes are the
+    tensors' final values."""
+    from s2v_torch.utils.cache import ArtifactCache
+
+    cache = ArtifactCache(str(tmp_path))
+    x = torch.zeros(64, 1024, 1024, device=card)
+    for _ in range(50):  # a few ms of queued work before the values are final
+        x = x + 1.0
+    frames = (x[:4, :256, :256, None] * 3).to(torch.uint8).expand(4, 256, 256, 3).contiguous()
+    got = cache.get_or_compute("clip", "stabilized", lambda: frames, defer=True)
+    both = cache.get_or_compute("clip", "both", lambda: {"a": x[0, :8, :8], "b": np.ones(3)},
+                                defer=True)
+    assert got is frames and both["a"].is_cuda
+    host, events = cache._pending[0][1:]
+    assert host.is_pinned() and len(events) == 1
+    cache.flush()
+    np.testing.assert_array_equal(np.load(tmp_path / "clip_stabilized.npz")["__single__"],
+                                  np.full((4, 256, 256, 3), 150, np.uint8))
+    data = np.load(tmp_path / "clip_both.npz")
+    np.testing.assert_array_equal(data["a"], np.full((8, 8), 50, np.float32))
+    np.testing.assert_array_equal(data["b"], np.ones(3))
