@@ -23,6 +23,9 @@ result line:
    in f32 and bf16; print the error against its tolerance, the kernel, plain
    and library times (CUDA events), the least time the card could take and
    the kernel's share of it. Speed fails nothing; a disagreement does.
+   Then the same at the component discriminators' shapes in GFPGAN
+   training (K1, K2 at [3, 64, 120, 120]; K3 there and on the eye crops'
+   40^2 planes, forward and backward).
 3. reference: the Step 6 slice at slim widths on the card (kernels) and on
    the CPU (plain versions), f32, must agree on the output frames.
 4. steps reference: Steps 1-3 (``extract_landmarks``, ``ffhq_crop``,
@@ -110,22 +113,50 @@ result line:
    wall and frames/s, per-step wall (synchronised at each step's ends),
    peak memory, the allocator segments each run added, the profiled
    sweep's top kernels.
-9. train reference: one R1 d_step, one g_step and one plain d_step of
+9. train command: ``s2v_torch.cli.main(["train", ...,
+   "--train.batch_size", "4", "--train.epochs", "3"])`` on the CLI phase's
+   checkpoint directory, with a random torchvision-layout vgg16.pth added,
+   and its clip: Steps 1-3, ``build_enet_batches`` (7 frames, 2 batches),
+   6 fine-tune steps of ENet's style convs at full width (ENet/LNet 158.9M)
+   with the VGG16 perceptual and ReconNet identity terms, f32 without TF32.
+   Checks: 6 steps, finite losses, only ``style_convs.*`` changed against
+   the ENet in the files, the last checkpoint restores the trained ENet bit
+   for bit, no kernel launched (ENet, VGG16 and ReconNet have no GPEN
+   layer). Printed: load_models s, batch-building s, synchronised ms per
+   step, peak memory.
+10. train reference: one R1 d_step, one g_step and one plain d_step of
    ``s2v_torch.train.gan.make_gan_trainer`` at slim widths on the card and
    on the CPU from the same weights and batch; metrics and every parameter
    gradient must agree.
-10. train: GPEN-BFR-512 (FullGenerator and Discriminator at full width,
+11. train: GPEN-BFR-512 (FullGenerator and Discriminator at full width,
    random weights from a fixed seed), batch 4 at 512^2 from
    ``face_batches`` over 8 synthetic faces, step pairs 0-16 (R1 at 0 and
    16), f32. The launch counts are reset just before and read just after;
    every step's K1, K2 and K3 launches must equal the counts that
    ``s2v_torch.train.gan.expected_train_launches`` derives from the models.
    Then one g_step under torch.profiler.
+12. finetune reference: one slim ENet fine-tune step with the VGG16 and
+   slim-ReconNet identity terms on the card and on the CPU from the same
+   weights (``phase_finetune_reference`` states the tolerances).
+13. gfpgan reference: one g_step and one d_step of
+   ``s2v_torch.train.gfpgan_train.make_gfpgan_trainer`` at slim widths
+   (GFPGANv1Clean, GPEN D, component discriminators on 16^2 crops, VGG16,
+   IR-SE50) on the card and on the CPU; metrics, every gradient and the
+   launch counts of ``expected_gfpgan_launches``.
+14. gfpgan train: GFPGANv1Clean(512), Discriminator(512,
+   channel_multiplier=1), three FacialComponentDiscriminators (eyes 80^2,
+   mouth 120^2 crops around the facexlib template's points, jittered),
+   VGG16 and IR-SE50 at full width, random weights from seed 0, batch 3 at
+   512^2 from ``face_batches`` (JPEG off), step pairs 0-4, f32, the
+   generator's lr ``GFPGAN_G_LR``; every step's metrics must be finite and
+   its K1, K2 and K3 launches equal ``expected_gfpgan_launches``.
+   Then one g_step under torch.profiler.
 
 Every time printed stands beside the card's name and power limit (printed
 first). The line before the last is one JSON object with every kernel's
 numbers, its launches summed over the main paths (the inference slice, the
-CLI's cold run and training) and split by path; the last is ``{"ok": true, "device": {...}}``. Details go to
+CLI's cold run, GPEN training, the train command and GFPGAN training) and
+split by path; the last is ``{"ok": true, "device": {...}}``. Details go to
 chiprun_out/chip_smoke.json. TF32 is off throughout (f32 convs and matmuls
 run in full f32; the pipeline keeps S3FD, FAN and ReconNet so regardless).
 """
@@ -335,6 +366,7 @@ def phase_kernels(torch):
             del x, xp, got, want
 
     cases += train_kernel_cases(torch, g, tol)
+    cases += gfpgan_kernel_cases(torch, g, tol)
 
     for c in cases:
         ok = c["max_abs_err"] <= c["tol"]
@@ -359,14 +391,10 @@ def train_kernel_cases(torch, g, tol):
     """K1 at the training path's largest activation, K2 at that shape, at a
     ragged one and at a [B, C] one, with and without b, and K3's GPEN-512
     forward configurations with their backward (gradient) configurations."""
-    import torch.nn.functional as F
-
     from s2v_torch.models.gpen import BLUR_TAPS, make_kernel
     from s2v_torch.ops.kernels import (fused_bias_leaky_relu, fused_bias_leaky_relu_bwd,
                                        fused_bias_leaky_relu_bwd_plain,
-                                       fused_bias_leaky_relu_plain, upfirdn2d_plain)
-    from s2v_torch.ops.kernels.upfirdn2d import (grad_pad, out_size, stuff_and_pad,
-                                                 upfirdn2d_fwd)
+                                       fused_bias_leaky_relu_plain)
 
     dev = torch.device("cuda")
     cases = []
@@ -411,7 +439,63 @@ def train_kernel_cases(torch, g, tol):
            ((4, 64, 512, 512), 1, 1, (2, 2), blur),      # before a stride-2 3x3 conv
            ((4, 64, 512, 512), 1, 1, (1, 1), blur),      # D's skip, before a stride-2 1x1
            ((4, 3, 256, 256), 2, 1, (2, 1), blur * 4)]   # ToRGB skip upsample
-    configs = []
+    return cases + k3_cases(torch, g, tol, fwd, "train")
+
+
+def gfpgan_kernel_cases(torch, g, tol):
+    """K1, K2 and K3 at the component discriminators' shapes in GFPGAN
+    training (batch 3, f32): K1 and K2 at the mouth crop's conv1 output
+    [3, 64, 120, 120], K3's blur before conv2 there (121 output columns)
+    and before the eye crops' conv4 ([3, 128, 40, 40], 41 columns), each
+    with its backward configuration (120 and 40 columns): planes around
+    the 40-column line where K3's strips take over from its one thread per
+    output."""
+    from s2v_torch.models.gpen import BLUR_TAPS, make_kernel
+    from s2v_torch.ops.kernels import (fused_bias_leaky_relu, fused_bias_leaky_relu_bwd,
+                                       fused_bias_leaky_relu_bwd_plain,
+                                       fused_bias_leaky_relu_plain)
+
+    dev = torch.device("cuda")
+    shape = (3, 64, 120, 120)
+    x = torch.randn(shape, generator=g, device=dev)
+    b = torch.randn(shape[1], generator=g, device=dev)
+    out = torch.randn(shape, generator=g, device=dev)
+    n = x.numel()
+    cases = []
+    for name, fn, plain, args, nbytes, ops in (
+            ("fused_act", fused_bias_leaky_relu, fused_bias_leaky_relu_plain, (x, b),
+             2 * n * 4 + 4 * shape[1], 4 * n),
+            ("fused_act_bwd", fused_bias_leaky_relu_bwd, fused_bias_leaky_relu_bwd_plain,
+             (x, out, None), 3 * n * 4, 2 * n)):
+        want = plain(*args)
+        err = (fn(*args) - want).abs().max().item()
+        bms, by = bound_ms(nbytes, ops)
+        case = dict(kernel=name, shape=list(shape), dtype="float32", max_abs_err=err,
+                    tol=tol(torch.float32, want), ms=event_ms(torch, lambda: fn(*args)),
+                    plain_ms=event_ms(torch, lambda: plain(*args)), bound_ms=bms, bound_by=by,
+                    library_ms=None, path="gfpgan")
+        if name == "fused_act_bwd":
+            case["with_b"] = False
+        cases.append(case)
+    del x, out, want
+    blur = make_kernel(BLUR_TAPS)
+    fwd = [(shape, 1, 1, (2, 2), blur),                # the mouth crop's conv2 blur
+           ((3, 128, 40, 40), 1, 1, (2, 2), blur)]     # the eye crops' conv4 blur
+    return cases + k3_cases(torch, g, tol, fwd, "gfpgan")
+
+
+def k3_cases(torch, g, tol, fwd, path):
+    """K3 in f32 at each (shape, up, down, pad, FIR) of ``fwd`` and at its
+    backward (gradient) configuration, against the plain version, with
+    the depthwise ``F.conv2d`` library time."""
+    import torch.nn.functional as F
+
+    from s2v_torch.ops.kernels import upfirdn2d_plain
+    from s2v_torch.ops.kernels.upfirdn2d import (grad_pad, out_size, stuff_and_pad,
+                                                 upfirdn2d_fwd)
+
+    dev = torch.device("cuda")
+    cases, configs = [], []
     for shape, up, down, pad, fir in fwd:
         configs.append((shape, fir, up, down, pad, pad, "forward"))
         o = out_size(shape[2], fir.shape[0], up, down, pad)
@@ -435,7 +519,7 @@ def train_kernel_cases(torch, g, tol):
             tol=tol(torch.float32, want),
             ms=event_ms(torch, lambda: upfirdn2d_fwd(x, fir, up, down, py, px)),
             plain_ms=event_ms(torch, lambda: upfirdn2d_plain(x, fir, up, down, py, px)),
-            bound_ms=bms, bound_by=by, path="train",
+            bound_ms=bms, bound_by=by, path=path,
             library_ms=event_ms(torch, lambda: F.conv2d(xp, w, stride=down,
                                                         groups=shape[1]))))
         del x, xp, got, want
@@ -1297,7 +1381,9 @@ def phase_cli(torch, card):
     ``s2v_torch.cli.main(["infer", ...])`` three times with one --tmp_dir:
     cold, warm (the artifact cache hit: Steps 1-3 and 5 not called) and
     with --re_preprocess. Landmark-driven geometry comes from the random
-    FAN here (the CLI has no injection)."""
+    FAN here (the CLI has no injection). Then the ``train`` command on the
+    same files and clip (``run_train_cmd``). Returns the CLI's launches and
+    report, and the train command's."""
     import shutil
     import tempfile
 
@@ -1325,7 +1411,9 @@ def phase_cli(torch, card):
         write_wav(work / "speech.wav", x["wav"])
         print(f"cli: wrote {size_gb:.2f} GB of checkpoints and the clip in "
               f"{time.perf_counter() - t:.1f} s")
-        return run_cli(torch, card, work, ckpt)
+        launches, report = run_cli(torch, card, work, ckpt)
+        torch.cuda.empty_cache()
+        return launches, report, run_train_cmd(torch, card, work, ckpt)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -1683,6 +1771,399 @@ def profile_g_step(torch, state, g_step, batch, unprofiled_ms):
     return profile_rows(device_rows(prof), "one g_step", unprofiled_ms)
 
 
+def run_train_cmd(torch, card, work, ckpt):
+    """The ``train`` command at full width on the CLI phase's checkpoint
+    directory (plus a random torchvision-layout vgg16.pth) and clip (phase
+    9)."""
+    from s2v_torch import cli
+    from s2v_torch.models.enet import enet_arch
+    from s2v_torch.models.vgg import VGG16Features
+    from s2v_torch.ops.kernels import launch_counts, reset_launch_counts
+    from s2v_torch.train import data as train_data
+    from s2v_torch.train import finetune_enet
+    from s2v_torch.train.finetune import init_state, make_optimizer, style_conv_mask
+    from s2v_torch.utils.checkpoint import TrainCheckpointer
+    from s2v_torch.utils.weights import load_reference, load_torch_checkpoint, merge_enet_lnet
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        cli.write_checkpoint_dir(ckpt, {"vgg16": VGG16Features()})
+    timing = {"load_s": [], "batches_s": [], "steps": []}
+    real = (cli.load_models, train_data.build_enet_batches,
+            finetune_enet.make_enet_finetune_step)
+
+    def load_models(*a, **k):
+        t0 = time.perf_counter()
+        m = real[0](*a, **k)
+        torch.cuda.synchronize()
+        timing["load_s"].append(time.perf_counter() - t0)
+        return m
+
+    def build(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real[1](*a, **k)
+        timing["batches_s"].append(time.perf_counter() - t0)
+        return out
+
+    def make_step(*a, **k):
+        state, step = real[2](*a, **k)
+
+        def timed(state, batch):
+            before = launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            torch.cuda.synchronize()
+            after = launch_counts()
+            timing["steps"].append(dict(ms=(time.perf_counter() - t0) * 1e3,
+                                        metrics={k: float(v) for k, v in m.items()},
+                                        launches={k: after[k] - before[k] for k in after}))
+            return state, m
+
+        return state, timed
+
+    tmp = work / "train_tmp"
+    argv = ["train", "--face", str(work / "clip.npz"), "--audio", str(work / "speech.wav"),
+            "--checkpoint_dir", ckpt, "--tmp_dir", str(tmp), "--train.batch_size", "4",
+            "--train.epochs", "3"]
+    cli.load_models, train_data.build_enet_batches = load_models, build
+    finetune_enet.make_enet_finetune_step = make_step
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        state = cli.main(argv)
+    finally:
+        cli.load_models, train_data.build_enet_batches = real[0], real[1]
+        finetune_enet.make_enet_finetune_step = real[2]
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    sd = merge_enet_lnet(load_torch_checkpoint(str(Path(ckpt) / "ENet.pth")),
+                         load_torch_checkpoint(str(Path(ckpt) / "LNet.pth")))
+    with torch.device("cuda"):
+        fresh = enet_arch(sd)
+    fresh = load_reference(fresh, sd).cuda()
+    after = state.module.state_dict()
+    changed = sorted({k.split(".")[0] for k, t in fresh.state_dict().items()
+                      if not torch.equal(t, after[k])})
+    ckptr = TrainCheckpointer(str(tmp / "enet_ckpt"))
+    restored = ckptr.restore(init_state(fresh, make_optimizer(1e-2, fresh, style_conv_mask)))
+    bitwise = all(torch.equal(t, after[k]) for k, t in fresh.state_dict().items())
+    steps = timing["steps"]
+    finite = all(math.isfinite(v) for st in steps for v in st["metrics"].values())
+    step_ms = [st["ms"] for st in steps]
+    print(f"train command: {len(steps)} steps (state.step {state.step}); load_models "
+          f"{sum(timing['load_s']):.2f} s, Steps 1-3 + batches "
+          f"{wall - sum(timing['load_s']) - sum(step_ms) / 1e3:.2f} s (build_enet_batches "
+          f"{sum(timing['batches_s']):.2f} s), synchronised ms per step "
+          f"{', '.join(f'{ms:.1f}' for ms in step_ms)}; main {wall:.1f} s; peak {peak:.1f} GiB; "
+          f"changed {changed}; checkpoints {ckptr.steps()}, restored step {restored.step} "
+          f"bit for bit {bitwise}; launches {launches}; last metrics "
+          f"{steps[-1]['metrics'] if steps else None}; {card}")
+    if len(steps) != 6 or state.step != 6:
+        fail(f"train command ran {len(steps)} steps (state.step {state.step}), want 6")
+    if not finite:
+        fail("train command: a loss is not finite")
+    if changed != ["style_convs"]:
+        fail(f"train command changed {changed}, want style_convs only")
+    if not bitwise or restored.step != 6:
+        fail("train command: the checkpoint does not restore the trained ENet bit for bit")
+    if any(launches.values()) or any(any(st["launches"].values()) for st in steps):
+        fail(f"train command launched kernels {launches}: ENet, VGG16 and ReconNet have none")
+    return launches, dict(wall_s=wall, load_s=timing["load_s"], batches_s=timing["batches_s"],
+                          steps=steps, peak_gib=peak, changed=changed,
+                          checkpoints=ckptr.steps())
+
+
+def finetune_models(torch, seed):
+    """The slim ENet of the slim slice, VGG16 (fixed widths) and a slim
+    ReconNet."""
+    from s2v_torch.models.enet import ENet
+    from s2v_torch.models.resnet import ReconNet
+    from s2v_torch.models.vgg import VGG16Features
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        return (ENet(lnet_res_blocks=2, channel_multiplier=0.25, narrow=0.25, lnet_base_nc=8,
+                     lnet_max_nc=32),
+                VGG16Features(), ReconNet(layers=(1, 1, 1, 1), base_planes=8))
+
+
+def phase_finetune_reference(torch):
+    """One slim ENet fine-tune step with the VGG16 and ReconNet identity
+    terms on the card and on the CPU from the same weights and batch, f32:
+    metrics within rtol 1e-4, style-conv gradients within 5e-3 of each
+    one's largest, updated style-conv parameters within 5e-3 of their
+    scale (lr 1e-3: an entry whose gradient is within f32 noise of 0 may
+    take Adam's first step the other way, 2e-3 apart), every other
+    parameter and every buffer bit-equal to before the step, no kernel
+    launched (phase 12)."""
+    from s2v_torch.ops.kernels import launch_counts, reset_launch_counts
+    from s2v_torch.train.finetune_enet import make_enet_finetune_step, make_id_embed_fn
+    from s2v_torch.utils.config import TrainConfig
+
+    enet, vgg, recon = finetune_models(torch, 4)
+    rng = np.random.RandomState(4)
+    batch = {"mel": rng.randn(2, 80, 16, 1).astype(np.float32),
+             "face": rng.rand(2, 96, 96, 6).astype(np.float32),
+             "ref": rng.rand(2, 96, 96, 3).astype(np.float32),
+             "target": rng.rand(2, 384, 384, 3).astype(np.float32)}
+    out = {}
+    for dev in ("cpu", "cuda"):
+        e = copy.deepcopy(enet)
+        before = {k: t.clone() for k, t in e.state_dict().items()}
+        state, step = make_enet_finetune_step(
+            e, TrainConfig(lr=1e-3), device=dev, vgg=copy.deepcopy(vgg),
+            id_embed_fn=make_id_embed_fn(copy.deepcopy(recon).to(dev)))
+        reset_launch_counts()
+        state, m = step(state, batch)
+        launches = launch_counts()
+        after = {k: t.detach().cpu() for k, t in e.state_dict().items()}
+        frozen = [k for k in after if not k.startswith("style_convs.")
+                  and not torch.equal(after[k], before[k].cpu())]
+        out[dev] = dict(metrics={k: float(v) for k, v in m.items()}, after=after,
+                        grads={k: p.grad.detach().cpu() for k, p in e.named_parameters()
+                               if p.grad is not None}, frozen_moved=frozen, launches=launches)
+    cpu, card = out["cpu"], out["cuda"]
+    worst = dict(metric=0.0, grad=0.0, param=0.0)
+    for k, want in cpu["metrics"].items():
+        worst["metric"] = max(worst["metric"], abs(card["metrics"][k] - want) / abs(want))
+    if set(card["grads"]) != set(cpu["grads"]) or not cpu["grads"]:
+        fail("finetune reference: the parameters with a gradient differ between the devices")
+    for k, want in cpu["grads"].items():
+        worst["grad"] = max(worst["grad"], (card["grads"][k] - want).abs().max().item()
+                            / max(want.abs().max().item(), 1e-30))
+    for k in cpu["grads"]:
+        want = cpu["after"][k]
+        worst["param"] = max(worst["param"], (card["after"][k] - want).abs().max().item()
+                             / max(1.0, want.abs().max().item()))
+    ok = (worst["metric"] <= 1e-4 and worst["grad"] <= 5e-3 and worst["param"] <= 5e-3
+          and not cpu["frozen_moved"] and not card["frozen_moved"]
+          and not any(card["launches"].values()))
+    print(f"finetune reference: slim ENet + VGG16 + slim ReconNet, card vs CPU: metrics "
+          f"{card['metrics']} (CPU {cpu['metrics']}), worst metric rel {worst['metric']:.2e} "
+          f"(tol 1e-4), style-conv gradient err / scale {worst['grad']:.2e} (tol 5e-3), "
+          f"updated parameters {worst['param']:.2e} (tol 5e-3), frozen moved "
+          f"{card['frozen_moved'] + cpu['frozen_moved']}, launches {card['launches']} "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("finetune reference: the card disagrees with the CPU")
+    return worst
+
+
+ROI_NAMES = ("left_eye", "right_eye", "mouth")
+# The generator's Adam rate in the full-width GFPGAN phase. Adam's first
+# steps move every entry by about lr; the JAX default 2e-3 is 0.2% of the
+# equalized layers' N(0, 1) weights but some 20% of GFPGANv1Clean's plain
+# convs' random Kaiming-scale ones (about 1e-2): one such step multiplied
+# the random generator's output by some 3e5 and pair 2 went to NaN on an
+# H100 (PERF.md, section 6). 2e-5 is the same 0.2% of those weights.
+GFPGAN_G_LR = 2e-5
+
+
+def gfpgan_nets(torch, size, seed, slim):
+    """GFPGANv1Clean, the GPEN discriminator (channel multiplier 1, as
+    GFPGAN's train_gfpgan_v1.yml sets its StyleGAN2Discriminator), three
+    FacialComponentDiscriminators, VGG16 and IR-SE50 (frozen), random from
+    ``seed``; slim: the generator and D at the slim slice's widths."""
+    from s2v_torch.models.gfpgan import GFPGANv1Clean
+    from s2v_torch.models.gpen import Discriminator
+    from s2v_torch.models.irse import BackboneIRSE
+    from s2v_torch.models.vgg import VGG16Features
+    from s2v_torch.train.gfpgan_train import FacialComponentDiscriminator
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        g = GFPGANv1Clean(out_size=size, **(dict(num_style_feat=64, channel_multiplier=0.5,
+                                                 narrow=0.5) if slim else {}))
+        d = Discriminator(size, channel_multiplier=1, narrow=0.25 if slim else 1.0)
+        comps = {name: FacialComponentDiscriminator() for name in ROI_NAMES}
+        vgg, irse = VGG16Features(), BackboneIRSE()
+    return g, d, comps, vgg.eval().requires_grad_(False), irse.eval().requires_grad_(False)
+
+
+def gfpgan_losses(torch, vgg, irse):
+    """The perceptual term (VGG16 on images mapped to [0, 1]) and the
+    identity embedding (IR-SE50 through ``id_loss_feats``) of the GFPGAN
+    phases."""
+    from s2v_torch.models.irse import id_loss_feats
+    from s2v_torch.models.vgg import vgg_perceptual_loss
+
+    def percep(fake, gt):
+        return vgg_perceptual_loss(vgg, (fake + 1) / 2, (gt + 1) / 2)
+
+    return percep, lambda x: id_loss_feats(irse, x)
+
+
+def gfpgan_batch(size, n, seed, jitter):
+    """``face_batches`` over synthetic faces, JPEG off, ``gt`` the high-
+    quality side; ``loc_*`` the facexlib template's eyes and mouth-corner
+    midpoint at ``size``, each jittered by up to ``jitter`` px. Returns the
+    batch and its host seconds."""
+    from s2v_torch.pipeline.restoration import FACEXLIB_TEMPLATE_512 as T
+
+    batch, host_s = train_batches(size, n, n, 1, seed)
+    batch = {"lq": batch[0]["lq"], "gt": batch[0]["hq"]}
+    rng = np.random.RandomState(seed)
+    for name, c in zip(ROI_NAMES, (T[0], T[1], (T[3] + T[4]) / 2)):
+        batch[f"loc_{name}"] = (c * size / 512.0 + rng.uniform(-jitter, jitter, (n, 2))
+                                ).astype(np.float32)
+    return batch, host_s
+
+
+def phase_gfpgan_reference(torch):
+    """One g_step and one d_step of ``make_gfpgan_trainer`` at slim widths
+    (GFPGANv1Clean and GPEN D at 64^2, the component discriminators on 16^2
+    crops, VGG16 and IR-SE50 at their widths) on the card and on the CPU,
+    each step from the CPU's parameters of the moment: metrics within rtol
+    1e-3, every parameter gradient within 5e-3 of that parameter's largest,
+    and the card's launches equal to ``expected_gfpgan_launches`` (phase
+    13)."""
+    from s2v_torch.ops.kernels import launch_counts, reset_launch_counts
+    from s2v_torch.train.gan import expected_gfpgan_launches
+    from s2v_torch.train.gfpgan_train import make_gfpgan_trainer
+
+    g, d, comps, vgg, irse = gfpgan_nets(torch, 64, 5, slim=True)
+    want_launches = expected_gfpgan_launches(g, d, comps)
+    batch, _ = gfpgan_batch(64, 2, 5, jitter=2.0)
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        percep, embed = gfpgan_losses(torch, copy.deepcopy(vgg).to(dev),
+                                      copy.deepcopy(irse).to(dev))
+        runs[dev] = make_gfpgan_trainer(copy.deepcopy(g), copy.deepcopy(d),
+                                        copy.deepcopy(comps), device=dev, vgg_loss_fn=percep,
+                                        id_embed_fn=embed,
+                                        roi_sizes=dict.fromkeys(ROI_NAMES, 16))
+    worst, worst_metric, launches = 0.0, 0.0, {}
+    for kind in ("g", "d"):
+        ref = runs["cpu"][0]
+        for mod in ("g", "d", "comps"):
+            getattr(runs["cuda"][0], mod).load_state_dict(getattr(ref, mod).state_dict())
+        out = {}
+        for dev, (state, g_step, d_step) in runs.items():
+            reset_launch_counts()
+            _, m = (g_step if kind == "g" else d_step)(state, batch)
+            launches[dev] = launch_counts()
+            mods = [("g", state.g)] if kind == "g" else [("d", state.d), ("comps", state.comps)]
+            out[dev] = ({k: float(v) for k, v in m.items()},
+                        {f"{n}.{k}": None if p.grad is None else p.grad.detach().cpu()
+                         for n, mod in mods for k, p in mod.named_parameters()})
+        (m_cpu, g_cpu), (m_dev, g_dev) = out["cpu"], out["cuda"]
+        for k in m_cpu:
+            rel = abs(m_dev[k] - m_cpu[k]) / max(abs(m_cpu[k]), 1e-6)
+            worst_metric = max(worst_metric, rel)
+            if rel > 1e-3:
+                fail(f"gfpgan reference {kind}: metric {k} card {m_dev[k]} vs CPU {m_cpu[k]}")
+        for k, want in g_cpu.items():
+            got = g_dev[k]
+            if (got is None) != (want is None):
+                fail(f"gfpgan reference {kind}: {k} has a gradient on one device only")
+                continue
+            if want is None:
+                continue
+            ratio = (got - want).abs().max().item() / max(want.abs().max().item(), 1e-30)
+            worst = max(worst, ratio)
+            if not ratio <= 5e-3:
+                fail(f"gfpgan reference {kind}: gradient of {k} off by {ratio:.2e} of its scale")
+        if launches["cuda"] != want_launches[kind]:
+            fail(f"gfpgan reference {kind}: launches {launches['cuda']}, expected "
+                 f"{want_launches[kind]}")
+        print(f"gfpgan reference {kind}_step: metrics {m_dev} (CPU {m_cpu}); launches "
+              f"{launches['cuda']} (expected {want_launches[kind]})")
+    print(f"gfpgan reference: slim GFPGANv1Clean-64 + GPEN D + 3 component Ds, card vs CPU, "
+          f"worst metric rel {worst_metric:.2e} (tol 1e-3), worst gradient err / scale "
+          f"{worst:.2e} (tol 5e-3) {'ok' if worst <= 5e-3 and worst_metric <= 1e-3 else 'FAIL'}")
+    return dict(worst_grad_ratio=worst, worst_metric_rel=worst_metric,
+                expected_launches=want_launches)
+
+
+def phase_gfpgan_train(torch, card):
+    """GFPGAN training at full width (phase 14): GFPGANv1Clean(512), GPEN
+    Discriminator(512, channel_multiplier=1), the three component
+    discriminators at the JAX defaults' crops (eyes 80, mouth 120), VGG16
+    perceptual and IR-SE50 identity terms, random weights from seed 0, f32
+    without TF32; batch 3 at 512^2, step pairs 0-4 (g_step, then d_step).
+    Every step's launches must equal ``expected_gfpgan_launches``."""
+    from s2v_torch.ops.kernels import launch_counts, reset_launch_counts
+    from s2v_torch.train.gan import expected_gfpgan_launches
+    from s2v_torch.train.gfpgan_train import make_gfpgan_trainer
+
+    t = time.perf_counter()
+    g, d, comps, vgg, irse = gfpgan_nets(torch, 512, 0, slim=False)
+    want = expected_gfpgan_launches(g, d, comps)
+
+    def params(m):
+        return sum(p.numel() for p in m.parameters()) / 1e6
+
+    print(f"gfpgan train: built GFPGANv1Clean(512) ({params(g):.1f}M params), D "
+          f"({params(d):.1f}M), 3 component Ds ({params(comps['mouth']):.2f}M each), VGG16 "
+          f"({params(vgg):.1f}M), IR-SE50 ({params(irse):.1f}M) in {time.perf_counter() - t:.1f} "
+          f"s; launches per step derived from the modules: {want}")
+    batch, host_s = gfpgan_batch(512, 3, 0, jitter=8.0)
+    batch = {k: torch.as_tensor(v).cuda() if k in ("lq", "gt") else v for k, v in batch.items()}
+    percep, embed = gfpgan_losses(torch, vgg.cuda(), irse.cuda())
+    state, g_step, d_step = make_gfpgan_trainer(g, d, comps, vgg_loss_fn=percep,
+                                                id_embed_fn=embed, g_lr=GFPGAN_G_LR)
+    init = {f"{m}.{k}": p.detach().clone() for m in ("g", "d", "comps")
+            for k, p in getattr(state, m).named_parameters()}
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    steps = []
+    t_run = time.perf_counter()
+    for pair in range(5):
+        for kind, fn in (("g", g_step), ("d", d_step)):
+            before = launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = fn(state, batch)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            after = launch_counts()
+            steps.append(dict(pair=pair, kind=kind, ms=ms,
+                              metrics={k: float(v) for k, v in m.items()},
+                              launches={k: after[k] - before[k] for k in after}))
+    run_s = time.perf_counter() - t_run
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    for st in steps:
+        if st["launches"] != want[st["kind"]]:
+            fail(f"gfpgan train pair {st['pair']} {st['kind']}_step: launches "
+                 f"{st['launches']}, expected {want[st['kind']]}")
+        if not all(math.isfinite(v) for v in st["metrics"].values()):
+            fail(f"gfpgan train pair {st['pair']} {st['kind']}_step: metrics {st['metrics']}")
+    for name, count in launches.items():
+        print(f"gfpgan train: {name} launches {count} (per g_step {want['g'][name]}, per "
+              f"d_step {want['d'][name]})")
+        if count == 0:
+            fail(f"{name} never launched on the GFPGAN training path")
+    changed = {m: sum(not torch.equal(p, init[f"{m}.{k}"])
+                      for k, p in getattr(state, m).named_parameters())
+               for m in ("g", "d", "comps")}
+    print(f"gfpgan train: parameters changed {changed}; step {state.step}")
+    if not all(changed.values()) or state.step != 5:
+        fail("gfpgan train: a model's parameters did not move, or step != 5")
+
+    def mean(vals):
+        return sum(vals) / len(vals)
+
+    steady = [st for st in steps if st["pair"] >= 1]
+    g_ms = mean([st["ms"] for st in steady if st["kind"] == "g"])
+    d_ms = mean([st["ms"] for st in steady if st["kind"] == "d"])
+    pairs_per_s = len(steady) / 2 / (sum(st["ms"] for st in steady) / 1e3)
+    print(f"gfpgan train: g_step {g_ms:.1f} ms, d_step {d_ms:.1f} ms (means over pairs 1-4); "
+          f"{pairs_per_s:.3f} step pairs/s; pair 0 (cuDNN warm-up) {steps[0]['ms']:.1f} + "
+          f"{steps[1]['ms']:.1f} ms; 5 pairs {run_s:.1f} s; peak {peak:.1f} GiB; face_batches "
+          f"host {host_s:.2f} s for the batch of 3 at 512^2; last g_step {steps[-2]['metrics']}; "
+          f"{card}")
+    per = dict(g_step_ms=g_ms, d_step_ms=d_ms, pairs_per_s=pairs_per_s, peak_gib=peak,
+               host_s_per_batch=host_s, steps=steps, expected=want,
+               profile=profile_g_step(torch, state, g_step, batch, g_ms))
+    return launches, per
+
+
 def main():
     import argparse
 
@@ -1729,10 +2210,17 @@ def main():
     report["mouth_reference"] = phase_mouth_reference(torch, card)
     launches, report["slice"] = phase_slice(torch, card)
     torch.cuda.empty_cache()
-    cli_launches, report["cli"] = phase_cli(torch, card)
+    cli_launches, report["cli"], (cmd_launches, report["train_cmd"]) = phase_cli(torch, card)
+    torch.cuda.empty_cache()
     report["train_reference"] = phase_train_reference(torch)
     train_launches, report["train"] = phase_train(torch, card)
+    torch.cuda.empty_cache()
+    report["finetune_reference"] = phase_finetune_reference(torch)
+    report["gfpgan_reference"] = phase_gfpgan_reference(torch)
+    gfpgan_launches, report["gfpgan_train"] = phase_gfpgan_train(torch, card)
     report["seconds"] = time.perf_counter() - t_start
+    paths = dict(slice=launches, cli=cli_launches, train=train_launches,
+                 train_cmd=cmd_launches, gfpgan_train=gfpgan_launches)
 
     def main_case(name, dtype):  # the first case at a main path's largest shape
         return next(c for c in cases if c["kernel"] == name and c["dtype"] == dtype)
@@ -1748,9 +2236,8 @@ def main():
         c = main_case(name, dtype)
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=launches[name] + cli_launches[name] + train_launches[name],
-            launches_by_path=dict(slice=launches[name], cli=cli_launches[name],
-                                  train=train_launches[name]),
+            launches=sum(path[name] for path in paths.values()),
+            launches_by_path={k: path[name] for k, path in paths.items()},
             max_abs_err=max(k["max_abs_err"] for k in cases if k["kernel"] == name),
             ms=c["ms"], plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
             bound_by=c["bound_by"], library_ms=c["library_ms"], shape=c["shape"],
@@ -1759,6 +2246,11 @@ def main():
     t = next(c for c in cases if c["kernel"] == "upfirdn2d" and c.get("role") == "forward")
     kernels[-1]["train_case"] = {k: t[k] for k in ("shape", "dtype", "pad", "ms", "plain_ms",
                                                    "bound_ms", "library_ms")}
+    # each kernel at the component discriminators' largest shape (GFPGAN training)
+    for k in kernels:
+        c = next(c for c in cases if c["kernel"] == k["name"] and c.get("path") == "gfpgan")
+        k["gfpgan_case"] = {f: c[f] for f in ("shape", "dtype", "max_abs_err", "ms", "plain_ms",
+                                              "bound_ms", "bound_by", "library_ms")}
     report["kernels"] = kernels
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))
     print(f"total {report['seconds']:.1f} s")

@@ -5,9 +5,11 @@ futils/inference_utils.py:16-51).
     python -m s2v_torch.cli infer --face clip.npz --audio speech.wav \\
         --outfile out.npz --checkpoint_dir checkpoints
     python -m s2v_torch.cli find-audio --face clip.npz --audio speech.wav
+    python -m s2v_torch.cli train --face clip.npz --audio speech.wav \\
+        --checkpoint_dir checkpoints [--train.epochs 10 --train.batch_size 16]
 
-``infer`` runs on the card; ``main(argv, device="cpu")`` runs it on the CPU
-on purpose. Checkpoints are the reference's torch files, loaded as they are
+``infer`` and ``train`` run on the card; ``main(argv, device="cpu")`` runs
+them on the CPU on purpose. Checkpoints are the reference's torch files, loaded as they are
 (``s2v_torch.utils.weights.load_reference``) into modules whose geometry is
 read from each file's state_dict:
 
@@ -20,7 +22,9 @@ read from each file's state_dict:
   RetinaFace-R50.pth, ParseNet-latest.pth, GFPGANv1.4.pth or GFPGANv1.3.pth
   (under ``params_ema``), GPEN-BFR-512.pth (its presence enables Step 5,
   which runs no GPEN), GPEN-BFR-2048.pth and realesrnet_x2.pth (under
-  ``params_ema``; the final 2x stage).
+  ``params_ema``; the final 2x stage);
+- for ``train``, vgg16-397923af.pth or vgg16.pth (torchvision's VGG16; its
+  perceptual term, else the pyramid stand-in).
 """
 
 from __future__ import annotations
@@ -160,14 +164,16 @@ CHECKPOINT_FILES = {
     "enet": ("ENet.pth", "state_dict"), "retinaface": ("RetinaFace-R50.pth", None),
     "parsenet": ("ParseNet-latest.pth", None), "gfpgan": ("GFPGANv1.4.pth", "params_ema"),
     "gpen512": ("GPEN-BFR-512.pth", None), "gpen2048": ("GPEN-BFR-2048.pth", None),
-    "srmodel": ("realesrnet_x2.pth", "params_ema"),
+    "srmodel": ("realesrnet_x2.pth", "params_ema"), "vgg16": ("vgg16.pth", None),
 }
 
 
 def write_checkpoint_dir(directory: str, modules: dict, lm3d=None, expression=None) -> str:
     """The inverse of ``load_models``: ``modules`` (names of
     ``CHECKPOINT_FILES``) saved with ``torch.save`` as reference-format files
-    in ``directory``; ENet's LNet also as LNet.pth. ``lm3d`` [5, 3] goes into
+    in ``directory``; ENet's LNet also as LNet.pth, a ``vgg16``
+    (``VGG16Features``) as the torchvision-layout vgg16.pth that ``train``
+    reads. ``lm3d`` [5, 3] goes into
     BFM/similarity_Lm3D_all.mat at the 68-point rows ``load_lm3d`` reads,
     ``expression`` [64] into expression.mat. Returns ``directory``."""
     from scipy.io import savemat
@@ -281,9 +287,58 @@ def find_audio(cfg) -> str:
     return best
 
 
+def train(cfg, device=None):
+    """The ``train`` command (s2v_tpu cli.py:274-323, reference
+    training.py): Steps 1-3 on the clip (no artifact cache, as s2v_tpu's
+    branch), ENet batches from DNet's stabilised frames
+    (``build_enet_batches``), then ``finetune`` of ENet's style convs with
+    the VGG16 perceptual term when a torchvision VGG16 file is in the
+    checkpoint directory and ReconNet's identity term when ReconNet is.
+    Checkpoints go to ``tmp_dir/enet_ckpt``, the log to
+    ``tmp_dir/train_log.jsonl``. Returns the final ``TrainState``."""
+    from s2v_torch.audio import melspectrogram
+    from s2v_torch.io.audio_io import load_wav
+    from s2v_torch.io.video_io import VideoReader
+    from s2v_torch.models.vgg import vgg16_features
+    from s2v_torch.pipeline.inference import LipSyncPipeline
+    from s2v_torch.train.data import build_enet_batches
+    from s2v_torch.train.finetune_enet import finetune, make_id_embed_fn
+    from s2v_torch.utils.weights import load_torch_checkpoint
+
+    models = load_models(cfg.infer.checkpoint_dir, cfg, device=device)
+    if models.enet is None:
+        raise RuntimeError("train needs ENet.pth and LNet.pth in the checkpoint directory")
+    pipe = LipSyncPipeline(cfg, models, device=device)
+    reader = VideoReader(cfg.infer.face)
+    frames = reader.read_all()
+    fps = reader.fps or cfg.infer.fps
+    lm = pipe.extract_landmarks(frames)
+    frames_256, coords = pipe.ffhq_crop(frames, lm[0])
+    semantic = pipe.extract_coeffs(frames_256, pipe.extract_landmarks(frames_256))
+    stabilized = pipe.stabilize(frames_256, semantic)
+    wav = load_wav(cfg.infer.audio, cfg.audio.sample_rate)
+    mel = melspectrogram(torch.from_numpy(wav).to(pipe.device), cfg.audio)
+    batches = build_enet_batches(pipe, stabilized, mel, frames, coords, fps,
+                                 batch_size=cfg.train.batch_size)
+    vgg = None
+    for name in ("vgg16-397923af.pth", "vgg16.pth"):
+        path = os.path.join(cfg.infer.checkpoint_dir, name)
+        if os.path.isfile(path):
+            vgg = vgg16_features(load_torch_checkpoint(path, key=None))
+            break
+    state = finetune(models.enet, batches, cfg.train, device=pipe.device,
+                     checkpoint_dir=os.path.join(cfg.infer.tmp_dir, "enet_ckpt"),
+                     log_path=os.path.join(cfg.infer.tmp_dir, "train_log.jsonl"),
+                     id_embed_fn=(make_id_embed_fn(models.recon)
+                                  if models.recon is not None else None),
+                     vgg=vgg)
+    print(f"trained {state.step} steps")
+    return state
+
+
 def main(argv=None, device=None):
-    """``infer`` (the default command) or ``find-audio``; ``device`` as
-    ``load_models``'s. ``train`` and ``bench`` are not ported yet."""
+    """``infer`` (the default command), ``train`` or ``find-audio``;
+    ``device`` as ``load_models``'s. ``bench`` is not ported yet."""
     argv = list(sys.argv[1:] if argv is None else argv)
     command = argv.pop(0) if argv and not argv[0].startswith("--") else "infer"
     cfg = parse_args(argv)
@@ -299,13 +354,13 @@ def main(argv=None, device=None):
         best = find_audio(cfg)
         print("best_audio:", best)
         return best
-    if command in ("train", "bench"):
-        queue, what = ((2, "ENet fine-tuning") if command == "train"
-                       else (1, "the port's benchmark"))
+    if command == "train":
+        return train(cfg, device)
+    if command == "bench":
         raise NotImplementedError(
-            f"s2v_torch does not port the {command} command ({what}) yet "
-            f"(ROADMAP.md, queue {queue}); s2v_tpu.cli has it")
-    raise SystemExit(f"unknown command {command!r}; use infer|find-audio")
+            "s2v_torch does not port the bench command (the port's benchmark) yet "
+            "(ROADMAP.md, queue 1); s2v_tpu.cli has it")
+    raise SystemExit(f"unknown command {command!r}; use infer|train|find-audio")
 
 
 if __name__ == "__main__":

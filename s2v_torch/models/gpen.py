@@ -200,11 +200,19 @@ class ToRGB(nn.Module):
 
 
 class ConvLayer(nn.Sequential):
-    """gpen_model.py:557-605: [Blur,] a bias-free EqualConv2d, then
-    FusedLeakyReLU when ``activate``. These are the two variants the GPEN
-    models use: (bias, activate) and, for ResBlock's skip, neither."""
+    """gpen_model.py:557-605: [Blur,] an EqualConv2d, then FusedLeakyReLU
+    when ``activate``. The conv takes a bias exactly when ``bias and not
+    activate`` (the activation holds it otherwise), as s2v_tpu's ConvLayer
+    ``use_bias``. Three variants are used: (bias, activate) in the GPEN
+    models and the component discriminator, (bias, no activation) for the
+    component discriminator's ``final_conv``, and neither for ResBlock's
+    skip. The reference's fourth, a scaled leaky ReLU without bias, has no
+    user and raises."""
 
-    def __init__(self, cin, cout, kernel, downsample=False, activate=True):
+    def __init__(self, cin, cout, kernel, downsample=False, bias=True, activate=True):
+        if activate and not bias:
+            raise ValueError("ConvLayer(activate=True, bias=False) (ScaledLeakyReLU) "
+                             "is not ported")
         layers = []
         if downsample:
             p = (len(BLUR_TAPS) - 2) + (kernel - 1)
@@ -212,7 +220,8 @@ class ConvLayer(nn.Sequential):
             stride, padding = 2, 0
         else:
             stride, padding = 1, kernel // 2
-        layers.append(EqualConv2d(cin, cout, kernel, stride, padding, bias=False))
+        layers.append(EqualConv2d(cin, cout, kernel, stride, padding,
+                                  bias=bias and not activate))
         if activate:
             layers.append(FusedLeakyReLU(cout))
         super().__init__(*layers)
@@ -225,7 +234,7 @@ class ResBlock(nn.Module):
         super().__init__()
         self.conv1 = ConvLayer(cin, cin, 3)
         self.conv2 = ConvLayer(cin, cout, 3, downsample=True)
-        self.skip = ConvLayer(cin, cout, 1, downsample=True, activate=False)
+        self.skip = ConvLayer(cin, cout, 1, downsample=True, bias=False, activate=False)
 
     def forward(self, x):
         return (self.conv2(self.conv1(x)) + self.skip(x)) / math.sqrt(2)

@@ -160,8 +160,11 @@ def make_gan_trainer(
 
 
 def kernel_sites(module: nn.Module) -> tuple:
-    """(K1, K3) call sites of one forward of a GPEN module: every
-    FusedLeakyReLU and fused EqualLinear, every Blur and Upsample."""
+    """(K1, K3) call sites of one forward of a module built from the GPEN
+    layers (a GPEN generator or discriminator, GFPGAN's
+    ``FacialComponentDiscriminator``): every FusedLeakyReLU and fused
+    EqualLinear, every Blur and Upsample. A module without them (VGG16,
+    IR-SE50, GFPGANv1Clean) has none."""
     mods = list(module.modules())
     k1 = sum(isinstance(m, FusedLeakyReLU)
              or (isinstance(m, EqualLinear) and m.activation == "fused_lrelu") for m in mods)
@@ -187,4 +190,29 @@ def expected_train_launches(g: nn.Module, d: nn.Module) -> dict:
         "d_r1": {"fused_act": g1 + 3 * d1, "fused_act_bwd": 4 * d1 + c1,
                  "upfirdn2d": g3 + 7 * d3 + c3},
         "g": {"fused_act": g1 + d1, "fused_act_bwd": g1 + d1, "upfirdn2d": 2 * (g3 + d3)},
+    }
+
+
+def expected_gfpgan_launches(g: nn.Module, d: nn.Module, comps: dict) -> dict:
+    """Kernel launches per step kind of ``s2v_torch.train.gfpgan_train.
+    make_gfpgan_trainer`` with generator ``g``, global discriminator ``d``
+    and component discriminators ``comps`` (name -> module), derived from
+    their kernel sites (G: g1, g3; D: d1, d3; the components' summed: c1,
+    c3). Every K1 site that takes a gradient runs one K2, every K3 site one
+    more K3:
+    - g_step: G forward and backward; D forward on ``fake`` and backward
+      (D's parameters take no gradient, its input does); each component on
+      the fake crop forward and backward, and on the real crop forward
+      only: those features run without a graph (the JAX step's
+      stop_gradient), so they add no backward launch;
+    - d_step: G forward without grad; D forward and backward on real and
+      on fake; each component the same on its real and fake crops."""
+    (g1, g3), (d1, d3) = kernel_sites(g), kernel_sites(d)
+    c1 = sum(kernel_sites(c)[0] for c in comps.values())
+    c3 = sum(kernel_sites(c)[1] for c in comps.values())
+    return {
+        "g": {"fused_act": g1 + d1 + 2 * c1, "fused_act_bwd": g1 + d1 + c1,
+              "upfirdn2d": 2 * (g3 + d3) + 3 * c3},
+        "d": {"fused_act": g1 + 2 * (d1 + c1), "fused_act_bwd": 2 * (d1 + c1),
+              "upfirdn2d": g3 + 4 * (d3 + c3)},
     }

@@ -514,3 +514,55 @@ def gfpgan_clean_from_jax(variables) -> StateDict:
         res = 2 ** ((i + 5) // 2)
         sd[f"{pre}.noises.noise{i}"] = torch.zeros(1, 1, res, res)
     return sd
+
+
+def vgg16_from_jax(variables) -> StateDict:
+    """s2v_tpu VGG16Features variables (``conv{N}``, N the torchvision layer
+    index) -> torchvision's ``features.N.weight/bias``, the inverse of
+    ``convert_vgg16_features``."""
+    sd: StateDict = {}
+    for name, d in variables["params"].items():
+        _conv(d, f"features.{name[len('conv'):]}", sd)
+    return sd
+
+
+def irse_from_jax(variables) -> StateDict:
+    """s2v_tpu BackboneIRSE variables -> model_ir_se50.pth's key names
+    (GPEN model_irse.py Backbone), the inverse of ``convert_irse``."""
+    p, s = variables["params"], variables["batch_stats"]
+    sd: StateDict = {}
+    _conv(p["input_conv"], "input_layer.0", sd)
+    _bn(p["input_bn"], s["input_bn"], "input_layer.1", sd)
+    sd["input_layer.2.weight"] = _t(p["input_prelu"]["alpha"])
+    n = sum(1 for k in p if k.startswith("body"))
+    for i in range(n):
+        b, bs, pre = p[f"body{i}"], s[f"body{i}"], f"body.{i}"
+        _bn(b["bn1"], bs["bn1"], f"{pre}.res_layer.0", sd)
+        _conv(b["conv1"], f"{pre}.res_layer.1", sd)
+        sd[f"{pre}.res_layer.2.weight"] = _t(b["prelu"]["alpha"])
+        _conv(b["conv2"], f"{pre}.res_layer.3", sd)
+        _bn(b["bn2"], bs["bn2"], f"{pre}.res_layer.4", sd)
+        if "se" in b:
+            _conv(b["se"]["fc1"], f"{pre}.res_layer.5.fc1", sd)
+            _conv(b["se"]["fc2"], f"{pre}.res_layer.5.fc2", sd)
+        if "shortcut_conv" in b:
+            _conv(b["shortcut_conv"], f"{pre}.shortcut_layer.0", sd)
+            _bn(b["shortcut_bn"], bs["shortcut_bn"], f"{pre}.shortcut_layer.1", sd)
+    _bn(p["output_bn"], s["output_bn"], "output_layer.0", sd)
+    _linear({"weight": p["linear_weight"], "bias": p["linear_bias"]}, "output_layer.3", sd)
+    _bn({"weight": p["head_weight"], "bias": p["head_bias"]},
+        {"running_mean": s["head_mean"], "running_var": s["head_var"]}, "output_layer.4", sd)
+    return sd
+
+
+def component_disc_from_jax(variables) -> StateDict:
+    """s2v_tpu FacialComponentDiscriminator variables -> basicsr's key names
+    (``convN.[0.kernel,] .weight``, the activation's ``.bias``;
+    ``final_conv.0.weight/bias``). s2v_tpu has no converter for this
+    module, so there is no round trip to hold it to."""
+    p = variables["params"]
+    sd: StateDict = {}
+    for name, down in (("conv1", False), ("conv2", True), ("conv3", False),
+                       ("conv4", True), ("conv5", False), ("final_conv", False)):
+        _gpen_convlayer(p[name], name, sd, downsample=down)
+    return sd

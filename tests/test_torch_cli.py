@@ -254,7 +254,7 @@ def test_unported_checkpoints_raise(ckpt, tmp_path, files, flags, refused):
         assert t_cli.load_models(str(tmp_path), cfg, device="cpu").s3fd is None
 
 
-@pytest.mark.parametrize("command, queue", [("train", 2), ("bench", 1)])
+@pytest.mark.parametrize("command, queue", [("bench", 1)])
 def test_unported_commands_raise(command, queue):
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md, queue {queue}"):
         t_cli.main([command, "--face", "x.npz"], device="cpu")

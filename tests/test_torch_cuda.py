@@ -50,9 +50,11 @@ CASES = [
 # and a chunk of up to 64 rows, 8 on planes this short; outputs under 40
 # columns take the one-thread-per-output kernel): GPEN-2048's width, a plane
 # of a few outputs, widths around 40, outputs one row past a chunk and one
-# column past a strip, GPEN-512 training's odd widths
+# column past a strip, GPEN-512 training's odd widths, and the component
+# discriminator's eye-crop planes before conv4 (40^2 in, 41 columns out of
+# the blur with pad (2, 2); its backward's 39^2 in, 40 out)
 SHAPES = [(2, 16, 33, 2049), (1, 3, 1, 7), (1, 3, 40, 41), (1, 4, 66, 130), (1, 4, 67, 131),
-          (1, 2, 513, 513), (1, 2, 511, 511)]
+          (1, 2, 513, 513), (1, 2, 511, 511), (1, 8, 40, 40), (1, 8, 39, 39)]
 
 
 def blur_kernel(taps, up=1):
@@ -523,3 +525,52 @@ def test_deferred_cache_writes_wait_for_their_pinned_copies(card, tmp_path):
     data = np.load(tmp_path / "clip_both.npz")
     np.testing.assert_array_equal(data["a"], np.full((8, 8), 50, np.float32))
     np.testing.assert_array_equal(data["b"], np.ones(3))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size", [16, 80, 120])
+def test_component_discriminator_on_the_card_matches_the_cpu(card, size):
+    """GFPGAN's FacialComponentDiscriminator (K1 for its five activations,
+    K3 for its two blurs; K2 and K3 again in backward) on the card against
+    the CPU (plain versions), f32 without TF32, with the launches its sites
+    imply: 5 K1 and 2 K3 forward, 5 K2 and 2 K3 backward. 16^2 crops take
+    K3's one-thread-per-output kernel, 80^2 and 120^2 its strips (41 to 121
+    output columns). The logits and both feature levels within 1e-4 of
+    their scale. The gradients are held in norm, relative L2 error 5e-3:
+    elementwise they jump where an activation lies within f32 rounding of 0
+    (the leaky ReLU's slope is 1 or 0.2 by its sign), and at these sizes
+    some do: on the CPU alone, f32 against f64 at 80^2, the input gradient
+    differs by 1.2% of its largest entry and by 1.0e-3 in relative L2
+    (conv1's weight gradient 1.2e-3); the card against the CPU by up to
+    1.2% elementwise, with the kernels as with the plain versions on the
+    card (which agree with the kernels within 1e-6 where no gate flips)."""
+    from s2v_torch.train.gfpgan_train import FacialComponentDiscriminator
+
+    torch.manual_seed(8)
+    model = FacialComponentDiscriminator()
+    x = torch.rand(3, 3, size, size) * 2 - 1
+    w = torch.randn(3, 1, size // 4, size // 4)
+
+    def run(module, xin, win):
+        xin = xin.clone().requires_grad_(True)
+        out, feats = module(xin, return_feats=True)
+        (out * win).sum().backward()
+        grads = [p.grad for p in module.parameters()]
+        module.zero_grad(set_to_none=True)
+        return [out, *feats], [xin.grad, *grads]
+
+    want_out, want_grads = run(model, x, w)
+    gpu = model.to(card)
+    before = launch_counts()
+    got_out, got_grads = run(gpu, x.to(card), w.to(card))
+    torch.cuda.synchronize()
+    after = launch_counts()
+    assert {k: after[k] - before[k] for k in after} == {"fused_act": 5, "fused_act_bwd": 5,
+                                                        "upfirdn2d": 4}
+    for a, ref in zip(got_out, want_out):
+        assert a.shape == ref.shape
+        assert (a.cpu() - ref).abs().max().item() <= 1e-4 * max(1.0, ref.abs().max().item())
+    assert len(got_grads) == len(want_grads)
+    for a, ref in zip(got_grads, want_grads):
+        assert a.shape == ref.shape
+        assert (a.cpu() - ref).norm().item() <= 5e-3 * ref.norm().item()

@@ -249,7 +249,28 @@ def test_gpen_convlayer_variants_match_jax(downsample, activate):
     want = jax.jit(model.apply)(v, x)
     sd = {}
     TW._gpen_convlayer(v["params"], "", sd, downsample)
-    port = load(TConvLayer(4, 6, 3, downsample=downsample, activate=activate),
+    port = load(TConvLayer(4, 6, 3, downsample=downsample, bias=activate, activate=activate),
+                {k[1:]: t for k, t in sd.items()})
+    with torch.no_grad():
+        got = port(to_nchw(x))
+    close(got.numpy().transpose(0, 2, 3, 1), want)
+
+
+@pytest.mark.parametrize("downsample", [False, True])
+def test_gpen_convlayer_conv_bias_variant_matches_jax(downsample):
+    """The variant with a conv bias and no activation (the component
+    discriminator's ``final_conv``): basicsr's key names, ``N.weight`` and
+    ``N.bias`` on the EqualConv2d, loaded strictly."""
+    rng = np.random.RandomState(9)
+    model = ConvLayer(6, 3, downsample=downsample, activate=False)
+    v = random_variables(model, (1, 16, 16, 4), seed=9, equalized=True)
+    x = rng.randn(2, 16, 16, 4).astype(np.float32)
+    want = jax.jit(model.apply)(v, x)
+    sd = {}
+    TW._gpen_convlayer(v["params"], "", sd, downsample)
+    conv = f".{int(downsample)}"
+    assert {f"{conv}.weight", f"{conv}.bias"} <= set(sd)
+    port = load(TConvLayer(4, 6, 3, downsample=downsample, activate=False),
                 {k[1:]: t for k, t in sd.items()})
     with torch.no_grad():
         got = port(to_nchw(x))
