@@ -25,7 +25,9 @@ result line:
    the kernel's share of it. Speed fails nothing; a disagreement does.
    Then the same at the component discriminators' shapes in GFPGAN
    training (K1, K2 at [3, 64, 120, 120]; K3 there and on the eye crops'
-   40^2 planes, forward and backward).
+   40^2 planes, forward and backward), and at the original GFPGANv1(512)'s
+   largest shapes in the mouth tail (bf16, batch 7). Inputs that fit in
+   the 50 MB L2 twice over are timed cold (``event_ms``).
 3. reference: the Step 6 slice at slim widths on the card (kernels) and on
    the CPU (plain versions), f32, must agree on the output frames.
 4. steps reference: Steps 1-3 (``extract_landmarks``, ``ffhq_crop``,
@@ -151,12 +153,34 @@ result line:
    generator's lr ``GFPGAN_G_LR``; every step's metrics must be finite and
    its K1, K2 and K3 launches equal ``expected_gfpgan_launches``.
    Then one g_step under torch.profiler.
+15. options reference (run after phase 6): the slim Step 6 with every
+   opt-in ``infer`` setting at once (the original GFPGANv1 in the mouth
+   tail, --without_rl1 with the --up_face surprise GANimation edit, --box
+   past the frame's sides, --cropped_image, model.approx_warp) on the card
+   and on the CPU, f32, within one gray level, every face valid; then with
+   model.detector_dtype=bfloat16 too (RetinaFace's landmarks from live
+   features, ``with_live_landmarks``), the card's bf16 output within twice
+   the CPU's own bf16-vs-f32 difference, which must not be 0
+   (``phase_options_reference``).
+16. infer options (run after phase 9, on phase 8's files): the CLI's
+   directory with GFPGANv1.4.pth swapped for a random GFPGANv1.pth (the
+   original arch at full width) and a random 30_net_gen.pth added; three
+   cold ``infer`` runs through ``s2v_torch.cli.main``: --up_face surprise
+   --without_rl1; --box --cropped_image; --model.detector_dtype bfloat16
+   --model.approx_warp true. Each: load_models s, run wall, frames/s, peak
+   memory, every face valid, K1 and K3 launches held to the chain's plus
+   GFPGANv1's ``forward_launches`` per tail forward; the third run's Step
+   5 against the second's on the same frames with a face supplied inside
+   them, on smooth frames over 40 dB; the sheared warp against the exact
+   one at Step 5's and the tail's shapes, over 45 dB, and card vs CPU
+   (``run_options``, ``approx_warp_checks``).
 
 Every time printed stands beside the card's name and power limit (printed
 first). The line before the last is one JSON object with every kernel's
 numbers, its launches summed over the main paths (the inference slice, the
-CLI's cold run, GPEN training, the train command and GFPGAN training) and
-split by path; the last is ``{"ok": true, "device": {...}}``. Details go to
+CLI's cold run, the first opt-in infer run, GPEN training, the train
+command and GFPGAN training) and split by path; the last is
+``{"ok": true, "device": {...}}``. Details go to
 chiprun_out/chip_smoke.json. TF32 is off throughout (f32 convs and matmuls
 run in full f32; the pipeline keeps S3FD, FAN and ReconNet so regardless).
 """
@@ -178,6 +202,8 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_FLOP_PER_S = 67e12    # H100 SXM, outside the tensor cores
 SPIN_CYCLES = 40_000_000  # ~20 ms at the H100's clocks
+L2_BYTES = 50 * 2 ** 20    # the H100's L2
+L2_FLUSH_BYTES = 4 * L2_BYTES
 FAILURES = []
 
 
@@ -214,20 +240,35 @@ def synthetic_landmarks(n, h, w, rng):
     return lm + rng.randn(n, 1, 2).astype(np.float32) * 0.5
 
 
-def event_ms(torch, fn, iters=10, warmup=2):
-    """Device ms per call of ``fn``. The calls queue behind a spin kernel of
-    some 20 ms, so the start event runs only once they are all enqueued: the
-    events time the device, not the host's enqueue (a wrapper's Python
-    costs tens of microseconds, more than a small layer's kernel)."""
-    for _ in range(warmup):
-        fn()
+def event_ms(torch, fn, args=(), iters=10, warmup=2):
+    """Device ms per call of ``fn(*args)``. The calls queue behind a spin
+    kernel of some 20 ms, so the start event runs only once they are all
+    enqueued: the events time the device, not the host's enqueue (a
+    wrapper's Python costs tens of microseconds, more than a small layer's
+    kernel). Tensors in ``args`` that fit in the L2 twice over are timed
+    cold, as a layer's caller meets them: each call gets its own clone of
+    them and keeps its output, and a read of ``L2_FLUSH_BYTES`` before the
+    spin evicts them all, so every call reads its inputs from HBM and
+    writes fresh lines (without that, 11 MB planes read "101% of bound")."""
+    nbytes = sum(a.numel() * a.element_size() for a in args if torch.is_tensor(a))
+    cold = 0 < nbytes < 2 * L2_BYTES
+    sets = ([tuple(a.clone() if torch.is_tensor(a) else a for a in args)
+             for _ in range(warmup + iters)] if cold else [args] * (warmup + iters))
+    for a in sets[:warmup]:
+        fn(*a)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    outs = []
+    if cold:
+        flush = torch.ones(L2_FLUSH_BYTES // 4, device="cuda")
+        flush.sum()  # leaves clean lines behind: nothing to write back later
     torch.cuda.synchronize()
     torch.cuda._sleep(SPIN_CYCLES)
     start.record()
-    for _ in range(iters):
-        fn()
+    for a in sets[warmup:]:
+        out = fn(*a)
+        if cold:  # a fresh output buffer for each call
+            outs.append(out)
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
@@ -326,8 +367,8 @@ def phase_kernels(torch):
             bms, by = bound_ms(2 * n * x.element_size() + 4 * shape[1], 4 * n)
             case = dict(kernel="fused_act", shape=list(shape), dtype=str(dtype)[6:],
                         max_abs_err=err, tol=tol(dtype, want),
-                        ms=event_ms(torch, lambda: fused_bias_leaky_relu(x, b)),
-                        plain_ms=event_ms(torch, lambda: fused_bias_leaky_relu_plain(x, b)),
+                        ms=event_ms(torch, fused_bias_leaky_relu, (x, b)),
+                        plain_ms=event_ms(torch, fused_bias_leaky_relu_plain, (x, b)),
                         bound_ms=bms, bound_by=by, library_ms=None)
             cases.append(case)
             del x, got, want
@@ -357,16 +398,18 @@ def phase_kernels(torch):
             case = dict(kernel="upfirdn2d", shape=list(shape), up=up, down=down,
                         pad=list(pad), dtype=str(dtype)[6:], max_abs_err=err,
                         tol=tol(dtype, want),
-                        ms=event_ms(torch, lambda: upfirdn2d(x, fir, up, down, pad)),
-                        plain_ms=event_ms(torch, lambda: upfirdn2d_plain(x, fir, up, down, pad)),
+                        ms=event_ms(torch, lambda x: upfirdn2d(x, fir, up, down, pad), (x,)),
+                        plain_ms=event_ms(torch, lambda x: upfirdn2d_plain(x, fir, up, down, pad),
+                                          (x,)),
                         bound_ms=bms, bound_by=by,
-                        library_ms=event_ms(torch, lambda: F.conv2d(
-                            xp, w, stride=down, groups=shape[1])))
+                        library_ms=event_ms(torch, lambda xp, w: F.conv2d(
+                            xp, w, stride=down, groups=shape[1]), (xp, w)))
             cases.append(case)
             del x, xp, got, want
 
     cases += train_kernel_cases(torch, g, tol)
     cases += gfpgan_kernel_cases(torch, g, tol)
+    cases += gfpgan_v1_kernel_cases(torch, g, tol)
 
     for c in cases:
         ok = c["max_abs_err"] <= c["tol"]
@@ -407,8 +450,8 @@ def train_kernel_cases(torch, g, tol):
     bms, by = bound_ms(2 * n * 4 + 4 * big[1], 4 * n)
     cases.append(dict(kernel="fused_act", shape=list(big), dtype="float32", max_abs_err=err,
                       tol=tol(torch.float32, want),
-                      ms=event_ms(torch, lambda: fused_bias_leaky_relu(x, b)),
-                      plain_ms=event_ms(torch, lambda: fused_bias_leaky_relu_plain(x, b)),
+                      ms=event_ms(torch, fused_bias_leaky_relu, (x, b)),
+                      plain_ms=event_ms(torch, fused_bias_leaky_relu_plain, (x, b)),
                       bound_ms=bms, bound_by=by, library_ms=None, path="train"))
     del x, want
 
@@ -429,8 +472,8 @@ def train_kernel_cases(torch, g, tol):
                 cases.append(dict(
                     kernel="fused_act_bwd", shape=list(shape), dtype=str(dtype)[6:],
                     with_b=with_b, max_abs_err=err, tol=tol(dtype, want),
-                    ms=event_ms(torch, lambda: fused_bias_leaky_relu_bwd(gr, out, bb)),
-                    plain_ms=event_ms(torch, lambda: fused_bias_leaky_relu_bwd_plain(gr, out, bb)),
+                    ms=event_ms(torch, fused_bias_leaky_relu_bwd, (gr, out, bb)),
+                    plain_ms=event_ms(torch, fused_bias_leaky_relu_bwd_plain, (gr, out, bb)),
                     bound_ms=bms, bound_by=by, library_ms=None, path="train"))
                 del gr, out, got, want
 
@@ -471,8 +514,8 @@ def gfpgan_kernel_cases(torch, g, tol):
         err = (fn(*args) - want).abs().max().item()
         bms, by = bound_ms(nbytes, ops)
         case = dict(kernel=name, shape=list(shape), dtype="float32", max_abs_err=err,
-                    tol=tol(torch.float32, want), ms=event_ms(torch, lambda: fn(*args)),
-                    plain_ms=event_ms(torch, lambda: plain(*args)), bound_ms=bms, bound_by=by,
+                    tol=tol(torch.float32, want), ms=event_ms(torch, fn, args),
+                    plain_ms=event_ms(torch, plain, args), bound_ms=bms, bound_by=by,
                     library_ms=None, path="gfpgan")
         if name == "fused_act_bwd":
             case["with_b"] = False
@@ -482,6 +525,58 @@ def gfpgan_kernel_cases(torch, g, tol):
     fwd = [(shape, 1, 1, (2, 2), blur),                # the mouth crop's conv2 blur
            ((3, 128, 40, 40), 1, 1, (2, 2), blur)]     # the eye crops' conv4 blur
     return cases + k3_cases(torch, g, tol, fwd, "gfpgan")
+
+
+def gfpgan_v1_kernel_cases(torch, g, tol):
+    """K1 and K3 in bf16 at the largest shapes GFPGANv1(512) gives them in
+    the mouth tail (the original arch, opt-in phase 15; the chain's batch
+    of 7 frames under bf16 autocast): K1 after the last StyleConv
+    [7, 32, 512, 512], K3 after the last transposed conv [7, 32, 513, 513]
+    (pad (1, 1)), before the U-Net's first stride-2 conv [7, 16, 512, 512]
+    (pad (2, 2)) and the last ToRGB skip upsample [7, 3, 256, 256]."""
+    import torch.nn.functional as F
+
+    from s2v_torch.models.gpen import BLUR_TAPS, make_kernel
+    from s2v_torch.ops.kernels import (fused_bias_leaky_relu, fused_bias_leaky_relu_plain,
+                                       upfirdn2d, upfirdn2d_plain)
+    from s2v_torch.ops.kernels.upfirdn2d import stuff_and_pad
+
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    shape = (7, 32, 512, 512)
+    x = torch.randn(shape, generator=g, device=dev).to(bf16)
+    b = torch.randn(shape[1], generator=g, device=dev)
+    want = fused_bias_leaky_relu_plain(x, b)
+    err = (fused_bias_leaky_relu(x, b).float() - want.float()).abs().max().item()
+    n = x.numel()
+    bms, by = bound_ms(2 * n * 2 + 4 * shape[1], 4 * n)
+    cases = [dict(kernel="fused_act", shape=list(shape), dtype="bfloat16", max_abs_err=err,
+                  tol=tol(bf16, want), ms=event_ms(torch, fused_bias_leaky_relu, (x, b)),
+                  plain_ms=event_ms(torch, fused_bias_leaky_relu_plain, (x, b)),
+                  bound_ms=bms, bound_by=by, library_ms=None, path="infer_options")]
+    del x, want
+    blur = make_kernel(BLUR_TAPS)
+    for shape, up, down, pad, fir in (((7, 32, 513, 513), 1, 1, (1, 1), blur * 4),
+                                      ((7, 16, 512, 512), 1, 1, (2, 2), blur),
+                                      ((7, 3, 256, 256), 2, 1, (2, 1), blur * 4)):
+        x = torch.randn(shape, generator=g, device=dev).to(bf16)
+        got = upfirdn2d(x, fir, up, down, pad)
+        want = upfirdn2d_plain(x, fir, up, down, pad)
+        err = (math.inf if got.shape != want.shape
+               else (got.float() - want.float()).abs().max().item())
+        bms, by = bound_ms((x.numel() + got.numel()) * 2, 2 * fir.size / (up * up) * got.numel())
+        xp = stuff_and_pad(x, up, pad)
+        w = torch.flip(torch.as_tensor(fir, device=dev), (0, 1)).to(bf16)[None, None].repeat(
+            shape[1], 1, 1, 1)
+        cases.append(dict(
+            kernel="upfirdn2d", shape=list(shape), up=up, down=down, pad=list(pad),
+            dtype="bfloat16", max_abs_err=err, tol=tol(bf16, want), path="infer_options",
+            ms=event_ms(torch, lambda x: upfirdn2d(x, fir, up, down, pad), (x,)),
+            plain_ms=event_ms(torch, lambda x: upfirdn2d_plain(x, fir, up, down, pad), (x,)),
+            bound_ms=bms, bound_by=by,
+            library_ms=event_ms(torch, lambda xp, w: F.conv2d(xp, w, stride=down,
+                                                              groups=shape[1]), (xp, w))))
+        del x, xp, got, want
+    return cases
 
 
 def k3_cases(torch, g, tol, fwd, path):
@@ -517,11 +612,11 @@ def k3_cases(torch, g, tol, fwd, path):
             kernel="upfirdn2d", shape=list(shape), up=up, down=down, pad=list(py),
             pad_x=list(px), dtype="float32", role=role, max_abs_err=err,
             tol=tol(torch.float32, want),
-            ms=event_ms(torch, lambda: upfirdn2d_fwd(x, fir, up, down, py, px)),
-            plain_ms=event_ms(torch, lambda: upfirdn2d_plain(x, fir, up, down, py, px)),
+            ms=event_ms(torch, lambda x: upfirdn2d_fwd(x, fir, up, down, py, px), (x,)),
+            plain_ms=event_ms(torch, lambda x: upfirdn2d_plain(x, fir, up, down, py, px), (x,)),
             bound_ms=bms, bound_by=by, path=path,
-            library_ms=event_ms(torch, lambda: F.conv2d(xp, w, stride=down,
-                                                        groups=shape[1]))))
+            library_ms=event_ms(torch, lambda xp, w: F.conv2d(xp, w, stride=down,
+                                                              groups=shape[1]), (xp, w))))
         del x, xp, got, want
     return cases
 
@@ -558,6 +653,36 @@ def with_face_landmarks(torch, retina, span=2.0):
         head.weight.zero_()
         head.bias.copy_(torch.from_numpy(np.tile(offsets.reshape(-1), 2)))
         retina.ClassHead[2].conv1x1.bias[3] += 2.0
+    return retina
+
+
+def with_live_landmarks(torch, retina, seed=5, input_scale=0.05, span=0.5):
+    """A slim RetinaFace whose landmarks come from live features, so that
+    bf16 convs move them: the default init shrinks the activations about
+    1e5-fold by level 2, where the heads then read their biases alone. The
+    body's, FPN's and SSHs' convs get He-normal weights from ``seed`` (the
+    first scaled by ``input_scale``, for pixel inputs), so every level's
+    features stay of order 0.1-1. The level-2 face logit rests on its
+    bias (``ClassHead.2`` weights zeroed: every level-2 anchor ties, in f32
+    and in bf16 alike, and the first wins on either device), and
+    ``LandmarkHead.2`` keeps its random weights over biases that place the
+    facexlib template in a square ``span`` times the anchor, as
+    ``with_face_landmarks`` does: the points keep a face's layout, and the
+    features move them by a few pixels."""
+    from s2v_torch.pipeline.restoration import FACEXLIB_TEMPLATE_512
+
+    g = torch.Generator().manual_seed(seed)
+    convs = [m for part in (retina.body, retina.fpn, retina.ssh1, retina.ssh2, retina.ssh3)
+             for m in part.modules() if isinstance(m, torch.nn.Conv2d)]
+    offsets = (FACEXLIB_TEMPLATE_512 - 256.0) / 512.0 * span / 0.1
+    with torch.no_grad():
+        for m in convs:
+            m.weight.copy_(torch.randn(m.weight.shape, generator=g)
+                           * math.sqrt(2.0 / m.weight[0].numel()))
+        convs[0].weight *= input_scale
+        retina.ClassHead[2].conv1x1.weight.zero_()
+        retina.LandmarkHead[2].conv1x1.bias.copy_(
+            torch.from_numpy(np.tile(offsets.reshape(-1), 2)))
     return retina
 
 
@@ -1382,8 +1507,9 @@ def phase_cli(torch, card):
     cold, warm (the artifact cache hit: Steps 1-3 and 5 not called) and
     with --re_preprocess. Landmark-driven geometry comes from the random
     FAN here (the CLI has no injection). Then the ``train`` command on the
-    same files and clip (``run_train_cmd``). Returns the CLI's launches and
-    report, and the train command's."""
+    same files and clip (``run_train_cmd``) and the opt-in ``infer``
+    settings (``run_options``). Returns the CLI's launches and report, and
+    the train command's and the options' (launches, report)."""
     import shutil
     import tempfile
 
@@ -1413,7 +1539,9 @@ def phase_cli(torch, card):
               f"{time.perf_counter() - t:.1f} s")
         launches, report = run_cli(torch, card, work, ckpt)
         torch.cuda.empty_cache()
-        return launches, report, run_train_cmd(torch, card, work, ckpt)
+        train_cmd = run_train_cmd(torch, card, work, ckpt)
+        torch.cuda.empty_cache()
+        return launches, report, train_cmd, run_options(torch, card, work, ckpt, x["frames"])
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -1546,6 +1674,356 @@ def run_cli(torch, card, work, ckpt):
     for r in runs:
         del r["frames"]
     return runs[0]["launches"], dict(runs=runs)
+
+
+GFPGANER = dict(input_is_latent=True, different_w=True, sft_half=True)  # gfpgan/utils.py:63-74
+SLIM_BOX = (10, 80, -6, 130)  # --box top bottom left right, past the slim frames' sides
+
+
+def options_models(torch):
+    """``slim_models`` with the original GFPGANv1 in place of GFPGANv1Clean
+    (out_size 64, slim, GFPGANer's wiring; its ToRGB layers scaled by 0.04,
+    as the CPU tests scale them, for the reason of
+    ``with_unsaturated_rgb``), a slim GANimation SplitGenerator (ngf 16,
+    2 blocks) and RetinaFace with live landmarks (``with_live_landmarks``),
+    so that bf16 detection changes the output."""
+    from s2v_torch.models.ganimation import SplitGenerator
+    from s2v_torch.models.gfpgan import GFPGANv1, ToRGBV1
+
+    models = slim_models(torch)
+    with_live_landmarks(torch, models["retinaface"])
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(2)
+        models["gfpgan"] = GFPGANv1(out_size=64, num_style_feat=64, channel_multiplier=0.5,
+                                    narrow=0.5, **GFPGANER)
+        models["ganimation"] = SplitGenerator(ngf=16, n_blocks=2)
+    with torch.no_grad():
+        for m in models["gfpgan"].modules():
+            if isinstance(m, ToRGBV1):
+                m.modulated_conv.weight *= 0.04
+                m.bias *= 0.04
+    return models
+
+
+def options_pipeline(models, cfg, device):
+    """The slim Step 6 with every opt-in setting of ``cfg`` wired as
+    ``s2v_torch.cli.load_models`` wires it: the mouth tail (RetinaFace,
+    GFPGANv1, ParseNet), the final hook (SR) and the GANimation editor.
+    Returns (pipeline, tail restorer, final enhancer)."""
+    from s2v_torch.pipeline.enhance import FaceEnhancer, final_enhancer_hook
+    from s2v_torch.pipeline.inference import LipSyncPipeline, PipelineModels
+    from s2v_torch.pipeline.restoration import make_mouth_restorer, make_up_face_editor
+
+    opts = dict(approx_warp=cfg.model.approx_warp, det_dtype=cfg.model.detector_dtype)
+    tail = make_mouth_restorer({k: models[k] for k in ("retinaface", "gfpgan", "parsenet")},
+                               chunk=4, parse_size=128, dtype=cfg.model.dtype,
+                               device=device, **opts)
+    final = FaceEnhancer({k: models[k] for k in ("retinaface", "facegan", "parsenet", "srmodel")},
+                         in_size=64, dtype=cfg.model.dtype, parse_size=128, device=device,
+                         **opts)
+    editor = make_up_face_editor({"ganimation": models["ganimation"]}, cfg.infer.up_face,
+                                 device=device)
+    pipe = LipSyncPipeline(cfg, PipelineModels(enet=models["enet"], mouth_restorer=tail,
+                                               final_enhancer=final_enhancer_hook(final),
+                                               up_face_editor=editor), device=device)
+    return pipe, tail.restorer, final
+
+
+def phase_options_reference(torch):
+    """The slim Step 6 with every opt-in setting at once (GFPGANv1 in the
+    tail, --without_rl1 with --up_face surprise, --box past the frame's
+    sides, --cropped_image, model.approx_warp) on the card against the CPU,
+    f32: within one gray level, every face of the tail and the final stage
+    valid on both. Then the same with model.detector_dtype=bfloat16
+    (RetinaFace's and the tail ParseNet's convs in bf16). RetinaFace's
+    landmarks come from live features here, so bf16 moves them and the CPU's
+    bf16 output differs from its f32 one; the card's and the CPU's bf16
+    convolutions round independently, so the card's bf16 output is held to
+    the CPU's within twice the CPU's own bf16-vs-f32 difference (mean, and
+    share of subpixels off by more than 1), or the f32 tolerance where
+    larger, and that difference must not be 0."""
+    from s2v_torch.utils.config import PipelineConfig, override
+
+    models = options_models(torch)
+    x = clip_inputs(6, 96, 112, 0.35, seed=3)
+    outs, valid = {}, {}
+    for dt in ("float32", "bfloat16"):
+        cfg = override(PipelineConfig(), {
+            "model.dtype": "float32", "infer.lnet_batch_size": "4", "infer.without_rl1": "true",
+            "infer.up_face": "surprise", "infer.box": ",".join(map(str, SLIM_BOX)),
+            "infer.cropped_image": "true", "model.approx_warp": "true",
+            "model.detector_dtype": dt})
+        for dev in ("cpu", "cuda"):
+            pipe, restorer, final = options_pipeline(copy.deepcopy(models), cfg, dev)
+            sinks = ([], [])
+            record_valid(restorer, sinks[0])
+            record_valid(final, sinks[1])
+            outs[dev, dt] = run_slice(torch, pipe, x, dev)
+            valid[dev, dt] = [valid_count(sink) for sink in sinks]
+    res = {"valid": {f"{d} {t}": v for (d, t), v in valid.items()}}
+    print(f"options reference: valid faces (tail, final) {res['valid']}")
+    if any(v != [(6, 6), (6, 6)] for v in valid.values()):
+        fail("options reference: not every face valid in the tail and the final stage")
+    res["float32"] = frames_agree(
+        "options reference: slim Step 6 with GFPGANv1, --without_rl1 --up_face surprise, --box, "
+        "--cropped_image, approx_warp, card vs CPU", outs["cuda", "float32"],
+        outs["cpu", "float32"], (6, 96, 112, 3))
+    d = np.abs(outs["cuda", "bfloat16"].astype(np.int32) - outs["cpu", "bfloat16"])
+    gap = np.abs(outs["cpu", "bfloat16"].astype(np.int32) - outs["cpu", "float32"])
+    tol_mean = max(2 * float(gap.mean()), 0.01)
+    tol_share = max(2 * float((gap > 1).mean()), 1e-3)
+    ok = (float(d.mean()) <= tol_mean and float((d > 1).mean()) <= tol_share
+          and float(gap.mean()) > 0)
+    print(f"options reference: the same with detector_dtype bfloat16, card vs CPU: mean "
+          f"{d.mean():.4f} (tol {tol_mean:.4f}), share > 1 gray level {(d > 1).mean():.2e} (tol "
+          f"{tol_share:.2e}); the CPU's bf16 vs f32: mean {gap.mean():.4f}, share > 1 "
+          f"{(gap > 1).mean():.2e} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("options reference: the bf16 detectors on the card disagree with the CPU's")
+    res["bfloat16"] = dict(mean=float(d.mean()), share_over_1=float((d > 1).mean()),
+                           cpu_gap_mean=float(gap.mean()),
+                           cpu_gap_share_over_1=float((gap > 1).mean()))
+    return res
+
+
+FULL_BOX = (128, 448, 96, 416)  # --box top bottom left right on the 512^2 clip
+OPTION_RUNS = (("up_face", ["--up_face", "surprise", "--without_rl1"]),
+               ("box_cropped", ["--box", *map(str, FULL_BOX), "--cropped_image"]),
+               ("bf16_approx", ["--model.detector_dtype", "bfloat16",
+                                "--model.approx_warp", "true"]))
+
+
+def psnr(a, b):
+    mse = float(np.mean((a.astype(np.float64) - b.astype(np.float64)) ** 2))
+    return 10 * math.log10(255.0 ** 2 / max(mse, 1e-12))
+
+
+def run_options(torch, card, work, ckpt, frames):
+    """Phase 15: the opt-in ``infer`` settings at full width through
+    ``s2v_torch.cli.main``, on the CLI phase's files with GFPGANv1.4.pth
+    taken out and a random GFPGANv1.pth (the original arch: GFPGANv1 512,
+    channel multiplier 1, narrow 1, GFPGANer's wiring) and 30_net_gen.pth
+    (GANimation, ngf 64, 6 blocks) put in, on the CLI phase's clip. Three
+    cold runs (a --tmp_dir each): --up_face surprise --without_rl1; --box
+    --cropped_image; --model.detector_dtype bfloat16 --model.approx_warp
+    true. Each: K1 and K3 launches equal to the chain's 38 and 27 a frame
+    plus GFPGANv1's ``forward_launches`` per tail forward; every face valid
+    in Step 5, the tail and the final stage; the output's shape (1x under
+    --cropped_image, its frames untouched outside the box). For the third,
+    the PSNR of its Step 5 (approximate warps) against the second run's
+    (exact, f32) on the same frames with landmarks supplied (a face inside
+    the frame, where the sheared warp is an approximation): the second
+    run's Step-5 input, and smooth frames, where it must exceed
+    ``STEP5_PSNR_FLOOR``; and ``approx_warp_checks``."""
+    import os
+
+    from s2v_torch import cli
+    from s2v_torch.models.ganimation import SplitGenerator
+    from s2v_torch.models.gfpgan import GFPGANv1, forward_launches
+    from s2v_torch.ops.kernels import launch_counts, reset_launch_counts
+    from s2v_torch.pipeline.inference import LipSyncPipeline as pipeline_cls
+
+    t = time.perf_counter()
+    opt_dir = work / "checkpoints_options"
+    opt_dir.mkdir()
+    for name in os.listdir(ckpt):
+        if name != "GFPGANv1.4.pth":
+            os.symlink(os.path.join(ckpt, name), opt_dir / name)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        v1 = GFPGANv1(out_size=512, **GFPGANER)
+        cli.write_checkpoint_dir(str(opt_dir), {"gfpgan_v1": v1, "ganimation": SplitGenerator()})
+    per_forward = forward_launches(v1)
+    del v1
+    print(f"options: wrote GFPGANv1.pth and 30_net_gen.pth in {time.perf_counter() - t:.1f} s; "
+          f"GFPGANv1(512) launches per forward {per_forward}")
+
+    real_load, real_enh = cli.load_models, pipeline_cls.enhance_reference
+    last, valid = {}, {"step5": [], "mouth": [], "final": []}
+
+    def load_models(*a, **k):
+        t0 = time.perf_counter()
+        m = last["models"] = real_load(*a, **k)
+        torch.cuda.synchronize()
+        last["load_s"] = time.perf_counter() - t0
+        record_valid(m.ref_enhancer.enhancer, valid["step5"])
+        record_valid(m.mouth_restorer.restorer, valid["mouth"])
+        record_valid(m.final_enhancer.enhancer, valid["final"])
+        return m
+
+    def enhance_reference(self, stab):
+        out = real_enh(self, stab)
+        last["step5"] = (stab, out[0])  # device tensors: read after the run
+        return out
+
+    argv = ["infer", "--face", str(work / "clip.npz"), "--audio", str(work / "speech.wav"),
+            "--checkpoint_dir", str(opt_dir)]
+    runs, step5 = [], {}
+    cli.load_models, pipeline_cls.enhance_reference = load_models, enhance_reference
+    try:
+        for label, flags in OPTION_RUNS:
+            last.clear()
+            for v in valid.values():
+                v.clear()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = cli.main(argv + flags + ["--outfile", str(work / f"opt_{label}.npz"),
+                                           "--tmp_dir", str(work / f"tmp_{label}")])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = launch_counts()
+            cfg = cli.parse_args(argv[1:] + flags)
+            models = last.pop("models")
+            step5[label] = tuple(torch.as_tensor(a).cpu().numpy() for a in last["step5"])
+            n = len(np.load(out)["frames"])
+            batch, chunk = cfg.infer.lnet_batch_size, models.mouth_restorer.restorer.chunk
+            forwards = sum(-(-min(batch, n - i) // chunk) for i in range(0, n, batch))
+            want = {k: c * forwards for k, c in per_forward.items()}
+            want["fused_act"] += 38 * n
+            want["upfirdn2d"] += 27 * n
+            if label == "box_cropped":  # the exact f32 hooks, run again below
+                exact_models = models
+            if label == "bf16_approx":  # its Step 5 again, below, on shared inputs
+                step5_models = models
+            runs.append(dict(label=label, flags=flags, out=np.load(out)["frames"],
+                             load_s=last["load_s"], run_s=wall - last["load_s"], main_s=wall,
+                             frames_per_s=n / (wall - last["load_s"]),
+                             peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                             launches=launches, want_launches=want,
+                             valid={k: valid_count(v) for k, v in valid.items()}))
+            del models
+    finally:
+        cli.load_models, pipeline_cls.enhance_reference = real_load, real_enh
+
+    # Step 5 of the bf16/approximate run's hooks and of the exact f32 run's
+    # on one input, with landmarks supplied (a rolled face inside the frame,
+    # where the sheared warp is an approximation; the smoke's RetinaFace
+    # puts its crops outside it, ROADMAP.md §3): the clip's Step-5 input and
+    # smooth frames, on which the CPU tests hold the warp
+    s5_in = torch.as_tensor(step5["box_cropped"][0], device="cuda")
+    lms = rolled_face_landmarks(len(s5_in), s5_in.shape[1], 0.6 * s5_in.shape[1])
+    smooth = smooth_frames(torch, len(s5_in), s5_in.shape[1], 3, seed=7, device="cuda")
+    smooth = smooth.round().to(torch.uint8).permute(0, 2, 3, 1)
+    step5_psnr = {}
+    for what, stab in (("clip", s5_in), ("smooth", smooth)):
+        exact, approx = (torch.as_tensor(m.ref_enhancer(stab, landmarks5=lms)).cpu().numpy()
+                         for m in (exact_models, step5_models))
+        step5_psnr[what] = psnr(approx, exact)
+    del step5_models, exact_models, s5_in, smooth
+    warps = approx_warp_checks(torch, card)
+    for r in runs:
+        o = r.pop("out")
+        n = len(o)
+        shape = (n, 512, 512, 3) if r["label"] == "box_cropped" else (n, 1024, 1024, 3)
+        checks = [o.shape == shape and o.dtype == np.uint8 and o.std() > 0,
+                  r["launches"] == r["want_launches"],
+                  r["valid"]["mouth"] == (n, n) and r["valid"]["final"] == (n, n)
+                  and r["valid"]["step5"] == (8, 8)]
+        extra = ""
+        if r["label"] == "box_cropped":  # untouched outside the box
+            top, bottom = FULL_BOX[:2]
+            kept = bool((o[:, :top] == frames[:n, :top]).all()
+                        and (o[:, bottom:] == frames[:n, bottom:]).all())
+            checks.append(kept)
+            r["outside_box_kept"] = kept
+            extra = f"; frames untouched outside the box: {kept}"
+        if r["label"] == "bf16_approx":
+            r["step5_psnr_vs_exact"], r["approx_warps"] = step5_psnr, warps
+            checks.append(step5_psnr["smooth"] > STEP5_PSNR_FLOOR)
+            extra = (f"; its Step 5 against the exact f32 run's, on the same frames with a "
+                     f"face 0.6 of the frame rolled 5 degrees: PSNR {step5_psnr['smooth']:.2f} "
+                     f"dB on smooth frames (floor {STEP5_PSNR_FLOOR}), "
+                     f"{step5_psnr['clip']:.2f} dB on the clip's Step-5 input")
+        r["ok"] = all(checks)
+        print(f"options: {r['label']} ({' '.join(r['flags'])}): output {o.shape}; main "
+              f"{r['main_s']:.2f} s = load_models {r['load_s']:.2f} s + run {r['run_s']:.2f} s "
+              f"({r['frames_per_s']:.2f} frames/s); peak {r['peak_gib']:.1f} GiB; valid faces "
+              f"{r['valid']}; launches {r['launches']} (derived {r['want_launches']}){extra}; "
+              f"{card} {'ok' if r['ok'] else 'FAIL'}")
+        if not r["ok"]:
+            fail(f"options {r['label']}: output, launches, valid faces or Step-5 PSNR off")
+    return runs[0]["launches"], dict(runs=runs)
+
+
+# the approximate Step 5 against the exact one on smooth frames: the CPU
+# tests' 45 dB for the warp's crop, less the round trip's second warp
+STEP5_PSNR_FLOOR = 40.0
+
+
+def rolled_face_landmarks(n, size, face, roll_deg=5.0):
+    """The facexlib template's 5 points for a face ``face`` px wide at the
+    centre of a ``size``^2 frame, rolled by ``roll_deg``: [n, 5, 2]."""
+    from s2v_torch.pipeline.restoration import FACEXLIB_TEMPLATE_512
+
+    t = math.radians(roll_deg)
+    rot = np.asarray([[math.cos(t), -math.sin(t)], [math.sin(t), math.cos(t)]])
+    pts = size / 2.0 + (FACEXLIB_TEMPLATE_512 - 256.0) * (face / 512.0) @ rot.T
+    return np.tile(pts[None], (n, 1, 1)).astype(np.float32)
+
+
+def smooth_frames(torch, n, size, channels, seed, device):
+    """[n, channels, size, size] smooth content in 0..255 (uniform noise at
+    1/8 the size, resized bilinearly: tests/test_warp_shear.py's)."""
+    from s2v_torch.ops.image import resize_bilinear
+
+    g = torch.Generator().manual_seed(seed)
+    small = torch.rand(n, channels, size // 8, size // 8, generator=g) * 255.0
+    return resize_bilinear(small.to(device), (size, size))
+
+
+def interior_psnr(torch, exact, approx):
+    """PSNR (peak 255) of two warps over their shared footprint eroded by 2
+    px (a 5x5 minimum, zeros outside the canvas), as tests/test_warp_shear.py
+    measures it: the sheared passes edge-replicate where the exact warp
+    blends with zeros."""
+    import torch.nn.functional as F
+
+    inner = [1.0 - F.max_pool2d(F.pad(1.0 - (a.abs().sum(1, keepdim=True) > 1e-6).float(),
+                                      (2, 2, 2, 2), value=1.0), 5, stride=1)
+             for a in (exact, approx)]
+    m = ((inner[0] * inner[1]) > 0.5).expand_as(exact)
+    mse = ((exact - approx)[m] ** 2).mean().item()
+    return 10 * math.log10(255.0 ** 2 / max(mse, 1e-12))
+
+
+def approx_warp_checks(torch, card, device="cuda"):
+    """model.approx_warp's two warps at the main path's shapes: Step 5's
+    crop of 8 256^2 frames to 512^2 and its 5-channel paste back, the mouth
+    tail's crop of 7 512^2 frames to 512^2 and its 4-channel paste back,
+    each for a face 0.6 of the frame rolled 5 degrees, on smooth content.
+    The sheared warp against the exact one over the footprint's interior:
+    over 45 dB, as the CPU tests hold it; the card's sheared warp against
+    the CPU's on the same inputs: within 2e-3 (values up to 255; the CPU
+    tests' tolerance against s2v_tpu's)."""
+    from s2v_torch.ops.warp import affine_warp, affine_warp_shear
+    from s2v_torch.pipeline.enhance import umeyama_similarity_batched
+    from s2v_torch.pipeline.restoration import FACEXLIB_TEMPLATE_512
+
+    template = torch.from_numpy(FACEXLIB_TEMPLATE_512).to(device)
+    res = {}
+    for what, n, size, paste_ch in (("step5", 8, 256, 5), ("tail", 7, 512, 4)):
+        lms = torch.from_numpy(rolled_face_landmarks(n, size, 0.6 * size)).to(device)
+        tfms, _ = umeyama_similarity_batched(lms, template)
+        x = smooth_frames(torch, n, size, 3, seed=size, device=device)
+        crop = [w(x, tfms, (512, 512)) for w in (affine_warp, affine_warp_shear)]
+        src = torch.cat([crop[0], torch.ones_like(crop[0][:, :paste_ch - 3])], 1)
+        paste = [w(src, tfms, (size, size), inverse=True) for w in (affine_warp, affine_warp_shear)]
+        cpu = (affine_warp_shear(x.cpu(), tfms.cpu(), (512, 512)),
+               affine_warp_shear(src.cpu(), tfms.cpu(), (size, size), inverse=True))
+        r = dict(crop_psnr=interior_psnr(torch, *crop), paste_psnr=interior_psnr(torch, *paste),
+                 card_vs_cpu=max((crop[1].cpu() - cpu[0]).abs().max().item(),
+                                 (paste[1].cpu() - cpu[1]).abs().max().item()))
+        r["ok"] = r["crop_psnr"] > 45.0 and r["paste_psnr"] > 45.0 and r["card_vs_cpu"] <= 2e-3
+        print(f"options: approx_warp at {what}'s shapes ({n}x3x{size}^2 -> 512^2, "
+              f"{n}x{paste_ch}x512^2 -> {size}^2), sheared vs exact: crop "
+              f"{r['crop_psnr']:.2f} dB, paste {r['paste_psnr']:.2f} dB (floor 45); card vs CPU "
+              f"{r['card_vs_cpu']:.2e} (tol 2e-3); {card} {'ok' if r['ok'] else 'FAIL'}")
+        if not r["ok"]:
+            fail(f"options: the sheared warp at {what}'s shapes is off")
+        res[what] = r
+    return res
 
 
 def device_rows(prof):
@@ -2208,9 +2686,11 @@ def main():
     report["steps_reference"] = phase_steps_reference(torch)
     report["retina_reference"] = phase_retina_reference(torch)
     report["mouth_reference"] = phase_mouth_reference(torch, card)
+    report["options_reference"] = phase_options_reference(torch)
     launches, report["slice"] = phase_slice(torch, card)
     torch.cuda.empty_cache()
-    cli_launches, report["cli"], (cmd_launches, report["train_cmd"]) = phase_cli(torch, card)
+    (cli_launches, report["cli"], (cmd_launches, report["train_cmd"]),
+     (opt_launches, report["infer_options"])) = phase_cli(torch, card)
     torch.cuda.empty_cache()
     report["train_reference"] = phase_train_reference(torch)
     train_launches, report["train"] = phase_train(torch, card)
@@ -2219,8 +2699,8 @@ def main():
     report["gfpgan_reference"] = phase_gfpgan_reference(torch)
     gfpgan_launches, report["gfpgan_train"] = phase_gfpgan_train(torch, card)
     report["seconds"] = time.perf_counter() - t_start
-    paths = dict(slice=launches, cli=cli_launches, train=train_launches,
-                 train_cmd=cmd_launches, gfpgan_train=gfpgan_launches)
+    paths = dict(slice=launches, cli=cli_launches, infer_options=opt_launches,
+                 train=train_launches, train_cmd=cmd_launches, gfpgan_train=gfpgan_launches)
 
     def main_case(name, dtype):  # the first case at a main path's largest shape
         return next(c for c in cases if c["kernel"] == name and c["dtype"] == dtype)
@@ -2251,6 +2731,14 @@ def main():
         c = next(c for c in cases if c["kernel"] == k["name"] and c.get("path") == "gfpgan")
         k["gfpgan_case"] = {f: c[f] for f in ("shape", "dtype", "max_abs_err", "ms", "plain_ms",
                                               "bound_ms", "bound_by", "library_ms")}
+    # K1 and K3 at GFPGANv1(512)'s largest shapes in the mouth tail (phase 15)
+    for k in kernels:
+        c = next((c for c in cases if c["kernel"] == k["name"]
+                  and c.get("path") == "infer_options"), None)
+        if c is not None:
+            k["gfpgan_v1_case"] = {f: c[f] for f in ("shape", "dtype", "max_abs_err", "ms",
+                                                     "plain_ms", "bound_ms", "bound_by",
+                                                     "library_ms")}
     report["kernels"] = kernels
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))
     print(f"total {report['seconds']:.1f} s")

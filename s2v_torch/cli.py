@@ -20,9 +20,12 @@ read from each file's state_dict:
   expression.mat;
 - the restoration stack, each also found under ``weights/``:
   RetinaFace-R50.pth, ParseNet-latest.pth, GFPGANv1.4.pth or GFPGANv1.3.pth
-  (under ``params_ema``), GPEN-BFR-512.pth (its presence enables Step 5,
-  which runs no GPEN), GPEN-BFR-2048.pth and realesrnet_x2.pth (under
+  (under ``params_ema``; GFPGANv1Clean), else GFPGANv1.pth (the original
+  arch, under ``params_ema``), GPEN-BFR-512.pth (its presence enables Step
+  5, which runs no GPEN), GPEN-BFR-2048.pth and realesrnet_x2.pth (under
   ``params_ema``; the final 2x stage);
+- 30_net_gen.pth or ganimation.pth (GANimation's SplitGenerator; the
+  ``--up_face`` edit, which takes effect under ``--without_rl1``);
 - for ``train``, vgg16-397923af.pth or vgg16.pth (torchvision's VGG16; its
   perceptual term, else the pyramid stand-in).
 """
@@ -46,6 +49,7 @@ def load_models(checkpoint_dir: str, cfg=None, device=None):
     from s2v_torch.models.dnet import dnet_arch
     from s2v_torch.models.enet import enet_arch
     from s2v_torch.models.fan import FAN
+    from s2v_torch.models.ganimation import ganimation_arch
     from s2v_torch.models.gfpgan import gfpgan_arch
     from s2v_torch.models.gpen import fullgenerator_arch
     from s2v_torch.models.parsenet import parsenet_arch
@@ -56,7 +60,7 @@ def load_models(checkpoint_dir: str, cfg=None, device=None):
     from s2v_torch.pipeline.enhance import (FaceEnhancer, final_enhancer_hook,
                                             reference_enhancer_hook)
     from s2v_torch.pipeline.inference import PipelineModels, refuse_unported
-    from s2v_torch.pipeline.restoration import make_mouth_restorer
+    from s2v_torch.pipeline.restoration import make_mouth_restorer, make_up_face_editor
     from s2v_torch.utils.config import PipelineConfig
     from s2v_torch.utils.weights import (load_reference, load_torch_checkpoint,
                                          merge_enet_lnet)
@@ -72,22 +76,12 @@ def load_models(checkpoint_dir: str, cfg=None, device=None):
     def maybe_weights(name):
         return maybe(name) or maybe(os.path.join("weights", name))
 
-    def build(arch, sd, **kw):
+    def build(make, sd, **kw):
         """The module of ``sd``'s geometry, built on the device and loaded
         strictly: a file whose keys or shapes do not fit raises."""
         with torch.device(device):
-            module = arch(sd, **kw)
+            module = make(sd, **kw)
         return load_reference(module, sd).to(device).eval()
-
-    # the refusals first, before any file is read
-    if maybe("GFPGANv1.pth") and not (maybe("GFPGANv1.4.pth") or maybe("GFPGANv1.3.pth")):
-        raise NotImplementedError(
-            "s2v_torch does not port the GFPGANv1 'original' arch that GFPGANv1.pth holds "
-            "yet (ROADMAP.md, queue 5); use GFPGANv1.4.pth or GFPGANv1.3.pth")
-    if (maybe("30_net_gen.pth") or maybe("ganimation.pth")) and cfg.infer.up_face != "original":
-        raise NotImplementedError(
-            f"s2v_torch does not port the GANimation edit --up_face {cfg.infer.up_face} yet "
-            "(ROADMAP.md, queue 5)")
 
     models = PipelineModels()
     if maybe("s3fd.pth"):
@@ -127,14 +121,21 @@ def load_models(checkpoint_dir: str, cfg=None, device=None):
     gfp_path = maybe("GFPGANv1.4.pth") or maybe("GFPGANv1.3.pth")
     if gfp_path:
         aux["gfpgan"] = build(gfpgan_arch, load_torch_checkpoint(gfp_path, key="params_ema"))
+    elif maybe("GFPGANv1.pth"):
+        # the original arch with GFPGANer's wiring for it (gfpgan/utils.py:63-74)
+        aux["gfpgan"] = build(gfpgan_arch, load_torch_checkpoint(maybe("GFPGANv1.pth"),
+                                                                 key="params_ema"),
+                              arch="original", input_is_latent=True, different_w=True,
+                              sft_half=True)
     dtype, parse_size = cfg.model.dtype, cfg.model.parse_size
+    opts = dict(approx_warp=cfg.model.approx_warp, det_dtype=cfg.model.detector_dtype)
     stack = "retinaface" in aux and "parsenet" in aux
     if maybe_weights("GPEN-BFR-512.pth") and stack:
         # Step 5 (inference.py:225-227,234-238; cli.py's ref_enhancer):
         # face_enhance=False, so GPEN-BFR-512 is never run, nor built here
         models.ref_enhancer = reference_enhancer_hook(FaceEnhancer(
             {k: aux[k] for k in ("retinaface", "parsenet")}, in_size=512, dtype=dtype,
-            parse_size=parse_size, device=device))
+            parse_size=parse_size, device=device, **opts))
 
     # the final full-frame stage: GPEN-BFR-2048 + RealESRNet x2, output at
     # twice the input's size (inference.py:228-231,246,317-330)
@@ -149,11 +150,17 @@ def load_models(checkpoint_dir: str, cfg=None, device=None):
                 rrdb_path, key="params_ema"), scale=2)
         # the hook hands the boxes on as (y1, y2, x1, x2) (cli.py:156-162)
         models.final_enhancer = final_enhancer_hook(FaceEnhancer(
-            final, in_size=2048, dtype=dtype, parse_size=parse_size, device=device))
+            final, in_size=2048, dtype=dtype, parse_size=parse_size, device=device, **opts))
+    # det_dtype sets the tail's ParseNet too (s2v_tpu's cli.py:173)
     models.mouth_restorer = make_mouth_restorer(aux, parse_size=parse_size, dtype=dtype,
-                                                device=device)
-    # a GANimation file with --up_face original changes nothing: s2v_tpu
-    # runs the edit only under --without_rl1, which refuse_unported refuses
+                                                device=device, **opts)
+    gani_path = maybe("30_net_gen.pth") or maybe("ganimation.pth")
+    if gani_path:
+        models.ganimation = build(ganimation_arch, load_torch_checkpoint(gani_path, key=None))
+        # --up_face (inference.py:250-253,267-281): the GANimation edit of
+        # the upper face, composited through the --without_rl1 mask
+        models.up_face_editor = make_up_face_editor({"ganimation": models.ganimation},
+                                                    cfg.infer.up_face, device=device)
     return models
 
 
@@ -163,6 +170,7 @@ CHECKPOINT_FILES = {
     "recon": ("face3d_pretrain_epoch_20.pth", "net_recon"), "dnet": ("DNet.pt", "net_G_ema"),
     "enet": ("ENet.pth", "state_dict"), "retinaface": ("RetinaFace-R50.pth", None),
     "parsenet": ("ParseNet-latest.pth", None), "gfpgan": ("GFPGANv1.4.pth", "params_ema"),
+    "gfpgan_v1": ("GFPGANv1.pth", "params_ema"), "ganimation": ("30_net_gen.pth", None),
     "gpen512": ("GPEN-BFR-512.pth", None), "gpen2048": ("GPEN-BFR-2048.pth", None),
     "srmodel": ("realesrnet_x2.pth", "params_ema"), "vgg16": ("vgg16.pth", None),
 }
@@ -186,6 +194,8 @@ def write_checkpoint_dir(directory: str, modules: dict, lm3d=None, expression=No
 
     for name, module in modules.items():
         sd = module.state_dict()
+        if name == "gfpgan_v1":  # basicsr's FIRs are no buffers (models/gfpgan.py)
+            sd = {k: v for k, v in sd.items() if not k.endswith(".kernel")}
         save(sd, *CHECKPOINT_FILES[name])
         if name == "enet":
             save({k[len("low_res."):]: v for k, v in sd.items() if k.startswith("low_res.")},

@@ -32,3 +32,13 @@ def full_f32():
         yield
     finally:
         cudnn.allow_tf32, matmul.allow_tf32 = saved
+
+
+def bf16_autocast(device: torch.device, dtype: str):
+    """bf16 autocast on ``device`` when ``dtype`` is "bfloat16" (the
+    detectors' and ParseNet's ``model.detector_dtype``): their convs run in
+    bf16 with the weights cast to it, as s2v_tpu casts its input and its
+    convs the weights (ops/convs.py:154-165), on the card and on the CPU
+    alike; a no-op for "float32". Callers cast the outputs to f32 before
+    any decode."""
+    return torch.autocast(device.type, dtype=torch.bfloat16, enabled=dtype == "bfloat16")

@@ -131,7 +131,11 @@ class Upsample(_Fir):
 
 
 class ModulatedConv2d(nn.Module):
-    """gpen_model.py:187-283 as input/output-scaled shared convs."""
+    """gpen_model.py:187-283 as input/output-scaled shared convs. The
+    upsample's blur is registered under ``blur_name`` (basicsr's StyleGAN2
+    calls it ``smooth``)."""
+
+    blur_name = "blur"
 
     def __init__(self, cin, cout, kernel, style_dim, demodulate=True,
                  upsample=False):
@@ -142,7 +146,8 @@ class ModulatedConv2d(nn.Module):
         self.modulation = EqualLinear(style_dim, cin, bias_init=1.0)
         if upsample:
             p = (len(BLUR_TAPS) - 2) - (kernel - 1)
-            self.blur = Blur(((p + 1) // 2 + 1, p // 2 + 1), upsample_factor=2)
+            self.add_module(self.blur_name,
+                            Blur(((p + 1) // 2 + 1, p // 2 + 1), upsample_factor=2))
 
     def forward(self, x, style):
         w = self.weight[0] * self.scale  # [Cout, Cin, k, k]
@@ -157,7 +162,7 @@ class ModulatedConv2d(nn.Module):
             demod = torch.rsqrt(s.float().square() @ w2.t() + 1e-8)
             out = out * demod[:, :, None, None].to(out.dtype)
         if self.upsample:
-            out = self.blur(out)
+            out = getattr(self, self.blur_name)(out)
         return out
 
 

@@ -8,6 +8,9 @@
   per-frame interpolation weights (zero weight outside the image).
 - ``affine_warp``: batched ``cv2.warpAffine`` with bilinear sampling and a
   zero border, the grid built on the device from the 2x3 matrices.
+- ``affine_warp_shear``: its approximation as two sheared separable passes
+  (config ``model.approx_warp``), s2v_tpu's design: a row-granular window
+  gather, a per-row residual shift and a banded interpolation matmul.
 - ``convert_flow_to_deformation`` / ``warp_image``: DNet's flow warp
   (reference: futils/flow_util.py:3-56), a pixel-unit flow added to the
   identity grid, upsampled to the image and sampled with ``grid_sample``.
@@ -18,6 +21,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from s2v_torch.device import full_f32
 from s2v_torch.ops.image import resize_bilinear
 
 
@@ -123,6 +127,116 @@ def affine_warp(images: torch.Tensor, mats: torch.Tensor, out_hw,
     gx = (2.0 * sx + 1.0) / w - 1.0
     gy = (2.0 * sy + 1.0) / h - 1.0
     return grid_sample_bilinear(images.float(), torch.stack([gx, gy], dim=-1))
+
+
+# Shear-resample row-group size and residual-shift tap count (s2v_tpu's
+# defaults, which it reads from S2V_SHEAR_G / S2V_SHEAR_U for its probes;
+# here they are constants). G rows share one window origin; U bounds the
+# within-group source drift the residual shift absorbs: |shift| * (G - 1) <=
+# U - 2, a shear of up to ~1.47.
+_SHEAR_G = 16
+_SHEAR_U = 24
+
+
+def _shear_resample_rows(x: torch.Tensor, stride: torch.Tensor, shift: torch.Tensor,
+                         const: torch.Tensor, out_s: int) -> torch.Tensor:
+    """Per-row sheared 1-D resample along the last axis (s2v_tpu's
+    ``_shear_resample_rows``). x [N, C, R, S]; out[n, c, r, t] = x[n, c, r,
+    stride[n] * t + shift[n] * r + const[n]], interpolated. Each group of
+    ``_SHEAR_G`` rows reads one window of the edge-replicated rows from an
+    integer origin; a ``_SHEAR_U``-tap lerp shifts each row by its residual
+    offset, and one matmul against shared-stride interpolation weights
+    resamples. Valid for stride > 0 and |shift| <= (U - 2) / (G - 1); the
+    caller zeroes outputs outside the source."""
+    n, c, r, s = x.shape
+    g, u = _SHEAR_G, _SHEAR_U
+    rp = -(-r // g) * g  # rows padded to a multiple of G
+    if rp != r:
+        x = F.pad(x, (0, 0, 0, rp - r))
+    kx = 2 * s + 1  # lerped window offsets in [0, 2s] reach every in-bounds source
+    kg = kx + u     # plus the residual shift and its lerp's extra tap
+    dev = x.device
+    rows = torch.arange(rp, dtype=torch.float32, device=dev)
+    pos = shift[:, None] * rows[None] + const[:, None]  # [N, Rp]
+    pg = pos.reshape(n, rp // g, g)
+    base = torch.clamp(torch.floor(pg.amin(dim=2)), -float(s), float(s))  # [N, Gc]
+    resid = torch.clamp(pg - base[..., None], 0.0, u - 2 + 0.999)
+    ri = torch.floor(resid)
+    rf = (resid - ri).reshape(n, rp)
+    ri = ri.reshape(n, rp)
+    # edge-replicated padding (s on the left, kg on the right): an origin
+    # slightly out of bounds must not bleed zeros into in-bounds samples
+    cols = torch.clamp(torch.arange(-s, s + kg, device=dev), 0, s - 1)
+    windows = x[..., cols].unfold(3, kg, 1)  # [N, C, Rp, 2s + 1, kg], a view
+    start = (base.long() + s).repeat_interleave(g, dim=1)  # [N, Rp], in [0, 2s]
+    win = windows[torch.arange(n, device=dev)[:, None], :,
+                  torch.arange(rp, device=dev)[None], start]  # [N, Rp, C, kg]
+    win = win.permute(0, 2, 1, 3)
+    # the residual shift: weight (1 - rf) at tap ri, rf at tap ri + 1
+    taps = torch.arange(u, dtype=torch.float32, device=dev)
+    wu = ((taps == ri[..., None]) * (1.0 - rf)[..., None]
+          + (taps == (ri + 1.0)[..., None]) * rf[..., None])[:, None]  # [N, 1, Rp, U]
+    acc = wu[..., 0, None] * win[..., 0:kx]
+    for k in range(1, u):
+        acc = acc + wu[..., k, None] * win[..., k:k + kx]
+    ts = torch.arange(out_s, dtype=torch.float32, device=dev)
+    wx = _interp_weights(stride[:, None] * ts[None], kx)  # [N, T, Kx]
+    out = torch.einsum("ntx,ncrx->ncrt", wx, acc)
+    return out[:, :, :r]
+
+
+def affine_warp_shear(images: torch.Tensor, mats: torch.Tensor, out_hw,
+                      inverse: bool = False) -> torch.Tensor:
+    """``affine_warp`` approximated as two sheared separable passes
+    (s2v_tpu's ``affine_warp_shear``, config ``model.approx_warp``).
+
+    The destination -> source affine [[a, b, tx], [c, d, ty]] factors
+    (Catmull-Smith) into a horizontal pass x' = (a - b c / d) j + (b / d) y
+    + const over source rows, then a vertical pass y' = c j + d i + ty over
+    columns, each ``_shear_resample_rows``. Each pass interpolates with a
+    lerp of lerps, a 3-tap kernel per axis whose weights sum to 1 with its
+    first moment at the sample: exact on linear content, slightly smoother
+    than bilinear on curvature. Valid for d > 0, a - b c / d > 0, shears
+    |b / d|, |c| up to ~1.4 (similarities with |rotation| up to ~55 deg)
+    and an output whose first column (row) maps no further than the
+    source's width (height) outside it: the window origins clip there, and
+    past it the result is no approximation, in s2v_tpu's as here.
+    Outputs outside the source footprint are zero (cv2's BORDER_CONSTANT);
+    the border ring may differ from ``affine_warp`` by one tap. Arithmetic in
+    full f32 (TF32 would lose three digits of its matmuls). images [N, C,
+    H, W]; mats [N, 2, 3] as ``affine_warp``'s. Returns f32 (uint8 input)
+    or the input's dtype."""
+    n, _, h, w = images.shape
+    oh, ow = out_hw
+    m = mats.float()
+    a00, a01, a02 = m[:, 0, 0], m[:, 0, 1], m[:, 0, 2]
+    a10, a11, a12 = m[:, 1, 0], m[:, 1, 1], m[:, 1, 2]
+    if not inverse:
+        det = a00 * a11 - a01 * a10
+        i00, i01 = a11 / det, -a01 / det
+        i10, i11 = -a10 / det, a00 / det
+        i02 = -(i00 * a02 + i01 * a12)
+        i12 = -(i10 * a02 + i11 * a12)
+    else:
+        i00, i01, i02, i10, i11, i12 = a00, a01, a02, a10, a11, a12
+    d_safe = torch.where(i11.abs() < 1e-6, torch.full_like(i11, 1e-6), i11)
+    with full_f32():
+        # pass 1: rows keep their y, columns resampled to output x
+        mid = _shear_resample_rows(images.float(), i00 - i01 * i10 / d_safe, i01 / d_safe,
+                                   i02 - i01 * i12 / d_safe, ow)  # [N, C, H, ow]
+        # pass 2: per output column j, along y at i10 j + i11 i + i12
+        out = _shear_resample_rows(mid.transpose(2, 3), i11, i10, i12, oh).transpose(2, 3)
+    xs = torch.arange(ow, dtype=torch.float32, device=images.device)[None, None, :]
+    ys = torch.arange(oh, dtype=torch.float32, device=images.device)[None, :, None]
+
+    def c(v):
+        return v[:, None, None]
+
+    sx = c(i00) * xs + c(i01) * ys + c(i02)
+    sy = c(i10) * xs + c(i11) * ys + c(i12)
+    inb = (sx > -1.0) & (sx < w) & (sy > -1.0) & (sy < h)
+    out = torch.where(inb[:, None], out, torch.zeros((), device=out.device))
+    return out.to(images.dtype if images.is_floating_point() else torch.float32)
 
 
 def paste_resize_boxes(frames: torch.Tensor, preds: torch.Tensor,

@@ -30,11 +30,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from s2v_torch.device import full_f32, resolve_device
+from s2v_torch.device import bf16_autocast, full_f32, resolve_device
 from s2v_torch.models.parsenet import parse_mask
 from s2v_torch.models.retinaface import RETINA_MEAN, detect_faces
 from s2v_torch.ops.image import frames_to_nchw, resize_bilinear
-from s2v_torch.ops.warp import affine_warp
+from s2v_torch.ops.warp import affine_warp, affine_warp_shear
 from s2v_torch.pipeline.utils import gaussian_blur, laplacian_pyramid_blend, mask_postprocess
 
 # align_faces.py:14-22
@@ -148,11 +148,16 @@ class FaceEnhancer:
     and never runs it) and 'srmodel' (RRDBNet, optional: when present, frames
     are super-resolved by its ``scale`` and composited over the SR frame).
     ``dtype`` is the generators' compute dtype on the card (autocast);
-    RetinaFace runs in full f32 (no TF32), warps, masks and composites in f32.
+    RetinaFace runs in full f32 (no TF32), or with bf16 convs when
+    ``det_dtype`` is bfloat16 (config ``model.detector_dtype``; the decode
+    stays f32); warps, masks and composites in f32. ``approx_warp`` (config
+    ``model.approx_warp``) takes ``affine_warp_shear`` for the crop and
+    paste warps.
     """
 
     def __init__(self, models: dict, in_size: int = 512, threshold: float = 0.9,
-                 dtype: str = "bfloat16", parse_size: int = 512, device=None):
+                 dtype: str = "bfloat16", parse_size: int = 512, approx_warp: bool = False,
+                 det_dtype: str = "float32", device=None):
         self.device = resolve_device(device)
         self.models = {k: m.to(self.device).eval() for k, m in models.items()
                        if m is not None}
@@ -169,6 +174,8 @@ class FaceEnhancer:
             get_reference_facial_points((in_size, in_size), 0.25, (0, 0), True)
         ).to(self.device)
         self.amp = dtype == "bfloat16" and self.device.type == "cuda"
+        self.det_dtype = det_dtype
+        self.warp = affine_warp_shear if approx_warp else affine_warp
 
     def _autocast(self):
         return torch.autocast(self.device.type, dtype=torch.bfloat16,
@@ -186,9 +193,10 @@ class FaceEnhancer:
         when the box's shorter side is under 100 px."""
         retina = self._model("retinaface", "unless landmarks5 are supplied")
         mean = torch.tensor(RETINA_MEAN, device=x.device).view(1, 3, 1, 1)
-        with full_f32():
-            boxes, landms, valid = detect_faces(retina(x.flip(1) - mean), x.shape[2:],
-                                                self.threshold)
+        with full_f32(), bf16_autocast(x.device, self.det_dtype):
+            outs = retina(x.flip(1) - mean)
+        boxes, landms, valid = detect_faces(tuple(o.float() for o in outs), x.shape[2:],
+                                            self.threshold)
         small = torch.minimum(boxes[:, 2] - boxes[:, 0], boxes[:, 3] - boxes[:, 1]) < 100
         return landms, small, valid
 
@@ -199,7 +207,7 @@ class FaceEnhancer:
         ``face_enhance`` (else the crop is the face), parse the face mask.
         Returns (face, tmp_mask, mask_sharp) [k, 3|1|1, s, s], f32."""
         s, ps = self.in_size, self.parse_size
-        ef = affine_warp(x, tfms, (s, s))
+        ef = self.warp(x, tfms, (s, s))
         if face_enhance:
             gan = self._model("facegan", "for face_enhance=True")
             with self._autocast():
@@ -226,8 +234,8 @@ class FaceEnhancer:
         blend at 512^2 over the sharp mask times ``box_mask`` [k, 1, H, W];
         'possion_nobbox': over the full mask (face_enhancement.py:179-189).
         Frames not ``valid`` keep ``base``. Returns uint8 [k, 3, H, W]."""
-        packed = affine_warp(torch.cat([ef, tmp_mask, mask_sharp], dim=1), tfms,
-                             base.shape[2:], inverse=True)
+        packed = self.warp(torch.cat([ef, tmp_mask, mask_sharp], dim=1), tfms,
+                           base.shape[2:], inverse=True)
         tmp_img, full_mask = packed[:, :3], packed[:, 3:4]
         if mode.startswith("possion"):
             blend_mask = (gaussian_blur(packed[:, 4:5], 9, 1.0) * box_mask

@@ -15,13 +15,18 @@ s2v_tpu/pipeline/inference.py ``LipSyncPipeline``):
   ParseNet and composited back) over the stabilised frames; under config
   ``model.reuse_detections`` one landmark sweep of those frames replaces
   its RetinaFace pass and serves Step 6's reference faces too.
-- Step 6: ``synthesize``: reference faces, ENet synthesis and paste-back;
+- Step 6: ``synthesize``: reference faces, ENet synthesis and paste-back
+  (under ``infer.without_rl1`` the prediction is composited with the
+  original faces first, edited by the ``up_face_editor`` hook, GANimation,
+  when ``--up_face`` asks for it; ``infer.box`` fixes the face box);
   the ``mouth_restorer`` hook (GFPGANv1Clean, ParseNet's mouth mask and the
   10-level Laplacian blend, ``s2v_torch.pipeline.restoration``); then the
   ``final_enhancer`` hook (GPEN-BFR-2048 + RealESRNet x2,
   ``s2v_torch.pipeline.enhance``). Both hooks locate the face with
   RetinaFace (the final one on the bilinear-2x frame), or take the Step-1
-  landmarks under ``model.reuse_detections``.
+  landmarks under ``model.reuse_detections``. ``infer.cropped_image``
+  brings the final stage's output back to 1x and keeps only its face box
+  over the original frame.
 
 ``run(face_path, audio_path, outfile)`` chains them as s2v_tpu's ``run``
 does: the clip file (``s2v_torch.io.video_io``), the ``--crop`` window,
@@ -29,10 +34,13 @@ Steps 1-3 and 5 through the per-video artifact cache
 (``s2v_torch.utils.cache``; Steps 3 and 5 written after Step 6), the wav
 and its mel, Step 6, the frames written and muxed with the audio.
 
-S3FD, FAN and ReconNet run in full f32 (no TF32); DNet and ENet under bf16
-autocast on the card when ``model.dtype`` is bfloat16. Public layout as
-s2v_tpu: NHWC uint8 frames, x1y1x2y2 boxes, [N, 68, 2] landmarks. Frames
-cross to the device once; intermediates stay there as NCHW float tensors.
+S3FD, FAN and ReconNet run in full f32 (no TF32), S3FD and FAN with bf16
+convs under ``model.detector_dtype=bfloat16`` (their decodes in f32); DNet
+and ENet under bf16 autocast on the card when ``model.dtype`` is bfloat16.
+``model.approx_warp`` takes ``affine_warp_shear`` for the reference faces'
+warps. Public layout as s2v_tpu: NHWC uint8 frames, x1y1x2y2 boxes,
+[N, 68, 2] landmarks. Frames cross to the device once; intermediates stay
+there as NCHW float tensors.
 """
 
 from __future__ import annotations
@@ -45,14 +53,15 @@ import numpy as np
 import torch
 
 from s2v_torch.audio.melspec import mel_chunks_for_frames, melspectrogram, num_mel_chunks
-from s2v_torch.device import full_f32, resolve_device
+from s2v_torch.device import bf16_autocast, full_f32, resolve_device
 from s2v_torch.io.audio_io import load_wav
 from s2v_torch.io.video_io import VideoReader, VideoWriter, mux_audio
 from s2v_torch.models.fan import (box_to_center_scale, crop_faces_batched,
                                   heatmaps_to_landmarks, lm68_to_lm5)
 from s2v_torch.models.s3fd import BGR_MEAN, best_boxes, pad_and_smooth_boxes
 from s2v_torch.ops.image import frames_to_nchw, resize_bilinear
-from s2v_torch.ops.warp import affine_warp, crop_resize_boxes, paste_resize_boxes
+from s2v_torch.ops.warp import (affine_warp, affine_warp_shear, crop_resize_boxes,
+                                paste_resize_boxes)
 from s2v_torch.pipeline.align import (compute_transform, crop_quad_params, ffhq_crop_box,
                                       quad_from_cxy)
 from s2v_torch.pipeline.face3d_prep import align_img
@@ -71,20 +80,11 @@ _CACHE_VERSION = 3
 def refuse_unported(cfg: PipelineConfig) -> None:
     """Raise NotImplementedError for a setting of s2v_tpu's that the port
     does not have yet, naming its ROADMAP queue: running on without it would
-    give another result than the JAX package's."""
-    unported = [
-        (cfg.parallel.infer_mesh, "parallel.infer_mesh (frame sharding over a mesh)", 4),
-        (cfg.model.approx_warp, "model.approx_warp (the sheared approximate warps)", 5),
-        (cfg.model.detector_dtype != "float32",
-         f"model.detector_dtype={cfg.model.detector_dtype} (detection runs in float32)", 5),
-        (cfg.infer.box[0] != -1, "infer.box (a fixed face box)", 5),  # s2v_tpu's test
-        (cfg.infer.cropped_image, "infer.cropped_image", 5),
-        (cfg.infer.without_rl1, "infer.without_rl1", 5),
-    ]
-    for on, what, queue in unported:
-        if on:
-            raise NotImplementedError(
-                f"s2v_torch does not port {what} yet (ROADMAP.md, queue {queue})")
+    give another result than the JAX package's. Only the mesh is left."""
+    if cfg.parallel.infer_mesh:
+        raise NotImplementedError(
+            "s2v_torch does not port parallel.infer_mesh (frame sharding over a mesh) yet "
+            "(ROADMAP.md, queue 4)")
 
 
 @dataclass
@@ -92,13 +92,16 @@ class PipelineModels:
     """Loaded modules per stage; None disables the stage.
 
     lm3d: [5, 3] standard 3D landmarks (``face3d_prep.load_lm3d``);
-    expression: [64] template expression coefficients.
+    expression: [64] template expression coefficients; ganimation: the
+    SplitGenerator of ``--up_face`` (loaded whenever its file is present).
     ref_enhancer(frames [N, 256, 256, 3] uint8, landmarks5=None,
     det_boxes=None) -> [N, 256, 256, 3] uint8 (Step 5).
     mouth_restorer(frames [B, H, W, 3] uint8, boxes [B, 4] x1y1x2y2,
     landmarks5=None) -> [B, H, W, 3] uint8 (the Step-6 mouth tail).
     final_enhancer(frames [B, H, W, 3] uint8, boxes [B, 4] x1y1x2y2,
     landmarks5=None, det_boxes=None) -> [B, 2H, 2W, 3] uint8.
+    up_face_editor(faces [B, 3, S, S] float 0..1 on the device) -> the same
+    (GANimation; it takes effect under ``infer.without_rl1``).
     """
 
     s3fd: Optional[torch.nn.Module] = None
@@ -108,9 +111,11 @@ class PipelineModels:
     enet: Optional[torch.nn.Module] = None
     lm3d: Optional[np.ndarray] = None
     expression: Optional[np.ndarray] = None
+    ganimation: Optional[torch.nn.Module] = None
     ref_enhancer: Optional[Callable] = None
     mouth_restorer: Optional[Callable] = None
     final_enhancer: Optional[Callable] = None
+    up_face_editor: Optional[Callable] = None
 
 
 def reference_face_transforms(lms: np.ndarray, image_size: int = 256):
@@ -170,6 +175,10 @@ class LipSyncPipeline:
     def _autocast(self):
         return torch.autocast(self.device.type, dtype=torch.bfloat16, enabled=self.amp)
 
+    def _det_autocast(self):
+        """S3FD's and FAN's convs in bf16 under ``model.detector_dtype``."""
+        return bf16_autocast(self.device, self.cfg.model.detector_dtype)
+
     # ------------------------------------------------------------------
     # Step 1: detection + landmarks
     # ------------------------------------------------------------------
@@ -177,14 +186,18 @@ class LipSyncPipeline:
     def _detect(self, x: torch.Tensor):
         """x [B, 3, H, W] RGB 0..255 -> (boxes [B, 4], valid [B])."""
         mean = torch.tensor(BGR_MEAN, device=x.device).view(1, 3, 1, 1)
-        return best_boxes(self.models.s3fd(x.flip(1) - mean))
+        with self._det_autocast():
+            outs = self.models.s3fd(x.flip(1) - mean)
+        return best_boxes([(c.float(), r.float()) for c, r in outs])
 
     def _landmarks(self, x: torch.Tensor):
         """x [B, 3, H, W] RGB 0..255 -> (boxes, valid, landmarks [B, 68, 2])."""
         boxes, valid = self._detect(x)
         centers, scales = box_to_center_scale(boxes)
-        hm = self.models.fan(crop_faces_batched(x, centers, scales))
-        return boxes, valid, heatmaps_to_landmarks(hm, centers, scales)
+        crops = crop_faces_batched(x, centers, scales)
+        with self._det_autocast():
+            hm = self.models.fan(crops)
+        return boxes, valid, heatmaps_to_landmarks(hm.float(), centers, scales)
 
     @torch.no_grad()
     def _sweep(self, fn, frames, batch: int):
@@ -374,12 +387,13 @@ class LipSyncPipeline:
         quad_mats, paste_mats = reference_face_transforms(np.asarray(lms))
         qm = torch.as_tensor(quad_mats, device=self.device)
         pm = torch.as_tensor(paste_mats, device=self.device)
-        crops = affine_warp(stab, qm, (256, 256), inverse=True)
+        warp = affine_warp_shear if self.cfg.model.approx_warp else affine_warp
+        crops = warp(stab, qm, (256, 256), inverse=True)
         region = full[:, :, oy1:oy2, ox1:ox2]
         region_256 = resize_bilinear(region, (256, 256))
         # RGB + coverage mask share one 4-channel paste warp
-        packed = affine_warp(torch.cat([crops, torch.ones_like(crops[:, :1])], 1),
-                             pm, (256, 256), inverse=True)
+        packed = warp(torch.cat([crops, torch.ones_like(crops[:, :1])], 1),
+                      pm, (256, 256), inverse=True)
         projected, mask = packed[:, :3], packed[:, 3:4]
         pasted = projected * mask + region_256 * (1 - mask)
         ff = full.clone()
@@ -393,7 +407,12 @@ class LipSyncPipeline:
                refs: torch.Tensor, mel: torch.Tensor) -> torch.Tensor:
         """crop + lower-half mask + ENet + paste for one batch. frames
         [B, 3, H, W] and refs [B, 3, img, img] float 0..255; mel
-        [B, 1, 80, 16]. Returns [B, 3, H, W] uint8."""
+        [B, 1, 80, 16]. Under ``infer.without_rl1`` the prediction is kept
+        only where the masked input is zero (the masked-out lower half, and
+        any exact-0 subpixel of the upper half) and the original face, edited
+        by the ``up_face_editor`` hook when there is one, is taken elsewhere
+        (inference.py:269-286), before the paste. Returns [B, 3, H, W]
+        uint8."""
         img = self.cfg.model.img_size
         ofaces = crop_resize_boxes(frames, boxes, (img, img)) / 255.0
         masked = ofaces.clone()
@@ -402,6 +421,11 @@ class LipSyncPipeline:
         with self._autocast():
             pred, _ = self.models.enet(mel, torch.cat([masked, ref], 1), ref)
         pred = torch.clamp(pred.float(), 0.0, 1.0)
+        if self.cfg.infer.without_rl1:
+            editor = self.models.up_face_editor
+            cur = ofaces if editor is None else editor(ofaces)
+            mask = (masked == 0).float()
+            pred = pred * mask + cur * (1.0 - mask)
         return torch.clamp(paste_resize_boxes(frames, pred * 255.0, boxes),
                            0, 255).to(torch.uint8)
 
@@ -417,8 +441,12 @@ class LipSyncPipeline:
         the mouth tail and the final enhancer take under
         ``model.reuse_detections`` (else each runs its own RetinaFace pass);
         lms_stab the landmarks of
-        ``stabilized`` (swept here when None). Returns [n_chunks, H', W', 3]
-        uint8 with H' = 2H when the final enhancer runs."""
+        ``stabilized`` (swept here when None). ``infer.box`` (top, bottom,
+        left, right), clamped to the frame, replaces the boxes, their pads
+        and smoothing. Returns [n_chunks, H', W', 3] uint8 with H' = 2H when
+        the final enhancer runs, unless ``infer.cropped_image`` brings its
+        output back to 1x and pastes only each frame's box into the
+        original frame (inference.py:316-325)."""
         self._require("enet")
         cfg = self.cfg
         reuse = cfg.model.reuse_detections and lms_full is not None
@@ -428,13 +456,20 @@ class LipSyncPipeline:
         if not torch.is_tensor(frames_t):
             frames_t = np.ascontiguousarray(frames_t)
         chunks = mel_chunks_for_frames(mel.to(self.device).float(), n_chunks, fps)
-        if boxes_full is None:
-            # no Step-1 boxes supplied: the reference re-detects here
-            # (inference.py:379 datagen)
-            boxes_full = self.detect_boxes(frames_t)
-        boxes = pad_and_smooth_boxes(np.asarray(boxes_full)[:n_frames],
-                                     frames_t.shape[1:3], pads=cfg.infer.pads,
-                                     smooth=not cfg.infer.nosmooth)
+        fh, fw = frames_t.shape[1:3]
+        if cfg.infer.box[0] != -1:
+            # a fixed box (--box, wav2lip's top bottom left right) bypasses
+            # detection, the pads and the smoothing (s2v_tpu's clamp)
+            by1, by2, bx1, bx2 = cfg.infer.box
+            boxes = np.tile(np.asarray([max(bx1, 0), max(by1, 0), min(bx2, fw), min(by2, fh)],
+                                       np.int64), (n_frames, 1))
+        else:
+            if boxes_full is None:
+                # no Step-1 boxes supplied: the reference re-detects here
+                # (inference.py:379 datagen)
+                boxes_full = self.detect_boxes(frames_t)
+            boxes = pad_and_smooth_boxes(np.asarray(boxes_full)[:n_frames], (fh, fw),
+                                         pads=cfg.infer.pads, smooth=not cfg.infer.nosmooth)
         frames_dev = torch.as_tensor(frames_t, device=self.device)  # crosses once
         full = frames_to_nchw(frames_dev, self.device)
         refs = self.build_reference_faces(
@@ -465,8 +500,23 @@ class LipSyncPipeline:
             if self.models.final_enhancer is not None:
                 kw = dict(landmarks5=lm5[idxs], det_boxes=boxes[idxs]) if reuse else {}
                 pasted = self.models.final_enhancer(pasted, boxes[idxs], **kw)
+                if cfg.infer.cropped_image:
+                    pasted = self._box_over_original(pasted, full[ix], boxes[idxs])
             out.append(torch.as_tensor(pasted).cpu().numpy())
         return np.concatenate(out)
+
+    @staticmethod
+    def _box_over_original(final, frames: torch.Tensor, boxes: np.ndarray) -> torch.Tensor:
+        """``--cropped_image``: the final stage's frames [B, sH, sW, 3] uint8
+        resized bilinearly to the originals' size, and only each box (x1,
+        y1, x2, y2, numpy's slices) pasted into the original frames [B, 3,
+        H, W] (0..255). Returns [B, H, W, 3] uint8."""
+        down = resize_bilinear(torch.as_tensor(final).permute(0, 3, 1, 2).float(),
+                               frames.shape[2:])
+        out = frames.clone()
+        for k, (x1, y1, x2, y2) in enumerate(boxes.tolist()):
+            out[k, :, y1:y2, x1:x2] = down[k, :, y1:y2, x1:x2]
+        return torch.clamp(out, 0, 255).to(torch.uint8).permute(0, 2, 3, 1)
 
     # ------------------------------------------------------------------
     # Full run

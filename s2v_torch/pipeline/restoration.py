@@ -1,41 +1,48 @@
-"""The Step-6 mouth tail (reference: inference.py:292-312; s2v_tpu/pipeline/
-restoration.py): GFPGAN restores the face, ParseNet finds the mouth on the
-face box, and a 10-level Laplacian blend at 512^2 puts the restored mouth
-over the frame.
+"""The Step-6 restoration hooks (reference: inference.py:250-312; s2v_tpu/
+pipeline/restoration.py): the mouth tail, in which GFPGAN restores the face,
+ParseNet finds the mouth on the face box and a 10-level Laplacian blend at
+512^2 puts the restored mouth over the frame; and the GANimation upper-face
+editor of ``--up_face``.
 
 ``GFPGANRestorer`` is GFPGANer.enhance(has_aligned=False,
 only_center_face=True, paste_back=True) (GFPGAN/gfpgan/utils.py:97-143),
-batched: RetinaFace finds the best face (full f32), a closed-form umeyama
-similarity maps its 5 landmarks to the facexlib 512^2 template, the frame is
-warped to the template crop, GFPGANv1Clean restores it (bf16 autocast on the
-card) and one 4-channel inverse warp pastes it back with its coverage. A
-frame whose face scores under ``threshold`` keeps its pixels. Supplied
-landmarks (config ``model.reuse_detections``) replace the detector, and
-every frame is then valid.
+batched: RetinaFace finds the best face, a closed-form umeyama similarity
+maps its 5 landmarks to the facexlib 512^2 template, the frame is warped to
+the template crop, GFPGAN restores it (bf16 autocast on the card) and one
+4-channel inverse warp pastes it back with its coverage. A frame whose face
+scores under ``threshold`` keeps its pixels. Supplied landmarks (config
+``model.reuse_detections``) replace the detector, and every frame is then
+valid. GFPGAN is either arch: GFPGANv1Clean (GFPGANv1.3/1.4) or the
+original GFPGANv1 (GFPGANv1.pth, on the K1/K3 kernels), whose tuple output
+gives its image first.
+
+s2v_tpu's options: ``det_dtype`` (config ``model.detector_dtype``) runs
+the convs of RetinaFace and of the tail's ParseNet in bf16 (the decodes stay
+f32); ``approx_warp`` takes ``affine_warp_shear`` for both warps. Its
+``mesh`` is not ported (queue 4 of ROADMAP.md).
 
 ``make_mouth_restorer`` adds the mouth blend and returns the pipeline's
-``mouth_restorer`` hook. Public layout as s2v_tpu: NHWC uint8 frames,
-x1y1x2y2 boxes, [N, 5, 2] landmarks in frame pixels; inside, NCHW float
-tensors on the device, where the valid flags stay (nothing synchronises).
-s2v_tpu's ``arch="original"``, ``approx_warp``, ``det_dtype``,
-``parse_dtype`` and ``mesh`` options are not ported: the detector and
-ParseNet run in f32, GFPGAN's size is its ``out_size``, the threshold the
-reference's 0.9.
+``mouth_restorer`` hook; ``make_up_face_editor`` the ``up_face_editor``
+hook. Public layout as s2v_tpu: NHWC uint8 frames, x1y1x2y2 boxes, [N, 5, 2]
+landmarks in frame pixels; inside, NCHW float tensors on the device, where
+the valid flags stay (nothing synchronises).
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
 
-from s2v_torch.device import full_f32, resolve_device
+from s2v_torch.device import bf16_autocast, full_f32, resolve_device
+from s2v_torch.models.ganimation import EXP_AUS, apply_expression
 from s2v_torch.models.parsenet import MOUTH_COLORMAP, parse_mask
 from s2v_torch.models.retinaface import RETINA_MEAN, detect_faces
 from s2v_torch.ops.image import frames_to_nchw, resize_bilinear
-from s2v_torch.ops.warp import affine_warp, crop_resize_boxes, paste_resize_boxes
+from s2v_torch.ops.warp import (affine_warp, affine_warp_shear, crop_resize_boxes,
+                                paste_resize_boxes)
 from s2v_torch.pipeline.enhance import _to_u8, umeyama_similarity_batched
 from s2v_torch.pipeline.utils import laplacian_pyramid_blend
 
@@ -63,14 +70,17 @@ class GFPGANRestorer:
     """GFPGANer, with the surface of s2v_tpu's (``models``, ``chunk``,
     ``enhance_batch``, ``enhance``).
 
-    models: 'gfpgan' (GFPGANv1Clean; the template crop is its ``out_size``,
-    512 in the reference, gfpgan/utils.py:76-82) and 'retinaface' (may be
-    left out when every call supplies ``landmarks5``). ``dtype`` is
-    GFPGAN's compute dtype on the card (autocast)."""
+    models: 'gfpgan' (GFPGANv1Clean or GFPGANv1; the template crop is its
+    ``out_size``, 512 in the reference, gfpgan/utils.py:76-82) and
+    'retinaface' (may be left out when every call supplies ``landmarks5``).
+    ``dtype`` is GFPGAN's compute dtype on the card (autocast);
+    ``det_dtype`` RetinaFace's (bfloat16: autocast on any device, as
+    s2v_tpu casts its input); ``approx_warp`` takes the sheared warps."""
 
     threshold = 0.9  # GFPGANer's face score threshold
 
-    def __init__(self, models: dict, chunk: int = 16, dtype: str = "bfloat16", device=None):
+    def __init__(self, models: dict, chunk: int = 16, dtype: str = "bfloat16",
+                 approx_warp: bool = False, det_dtype: str = "float32", device=None):
         self.device = resolve_device(device)
         self.models = {k: m.to(self.device).eval() for k, m in models.items() if m is not None}
         if "gfpgan" not in self.models:
@@ -80,17 +90,20 @@ class GFPGANRestorer:
         self.template = torch.from_numpy(FACEXLIB_TEMPLATE_512 * (self.size / 512.0)).to(
             self.device)
         self.amp = dtype == "bfloat16" and self.device.type == "cuda"
+        self.det_dtype = det_dtype
+        self.warp = affine_warp_shear if approx_warp else affine_warp
 
     @torch.no_grad()
     def _detect(self, x: torch.Tensor):
-        """RetinaFace on frames [k, 3, H, W] RGB 0..255, full f32: (boxes
-        [k, 4], landmarks [k, 5, 2], valid [k])."""
+        """RetinaFace on frames [k, 3, H, W] RGB 0..255, full f32 or bf16
+        convs (``det_dtype``), the decode in f32: (boxes [k, 4], landmarks
+        [k, 5, 2], valid [k])."""
         if "retinaface" not in self.models:
             raise ValueError("GFPGANRestorer needs a 'retinaface' model unless landmarks5 "
                              "are supplied")
-        with full_f32():
-            return detect_faces(self.models["retinaface"](x.flip(1) - _retina_mean_on(x.device)),
-                                x.shape[2:], self.threshold)
+        with full_f32(), bf16_autocast(x.device, self.det_dtype):
+            outs = self.models["retinaface"](x.flip(1) - _retina_mean_on(x.device))
+        return detect_faces(tuple(o.float() for o in outs), x.shape[2:], self.threshold)
 
     @torch.no_grad()
     def _restore_paste(self, x: torch.Tensor, landms: torch.Tensor,
@@ -100,14 +113,16 @@ class GFPGANRestorer:
         ``valid`` keep their pixels. Returns [k, 3, H, W] uint8."""
         s = self.size
         tfms, _ = umeyama_similarity_batched(landms, self.template)  # frame -> crop
-        face = affine_warp(x, tfms, (s, s))
+        face = self.warp(x, tfms, (s, s))
         with torch.autocast(self.device.type, dtype=torch.bfloat16, enabled=self.amp):
             out = self.models["gfpgan"]((face / 255.0 - 0.5) / 0.5)
+        if isinstance(out, tuple):  # GFPGANv1: (image, the U-Net's RGB heads)
+            out = out[0]
         restored = torch.clamp((out.float() + 1.0) / 2.0, 0.0, 1.0) * 255.0
         # the frame -> crop map with inverse=True is the paste warp; RGB and
         # the coverage mask share one 4-channel warp
-        packed = affine_warp(torch.cat([restored, torch.ones_like(restored[:, :1])], 1), tfms,
-                             x.shape[2:], inverse=True)
+        packed = self.warp(torch.cat([restored, torch.ones_like(restored[:, :1])], 1), tfms,
+                           x.shape[2:], inverse=True)
         pasted, mask = packed[:, :3], packed[:, 3:4]
         out = pasted * mask + x * (1.0 - mask)
         if valid is not None:
@@ -140,8 +155,10 @@ class GFPGANRestorer:
 class MouthRestorer:
     """The pipeline's ``mouth_restorer`` hook (inference.py:299-312), batched:
     GFPGAN restore, ParseNet's mouth mask on the face box (f32, at
-    ``parse_size``), the 10-level Laplacian blend at 512^2 of the restored
-    frame over the input."""
+    ``parse_size``; bf16 convs when the restorer's ``det_dtype`` is
+    bfloat16, as s2v_tpu's cli sets both from ``model.detector_dtype``), the
+    10-level Laplacian blend at 512^2 of the restored frame over the
+    input."""
 
     def __init__(self, restorer: GFPGANRestorer, parsenet: torch.nn.Module,
                  parse_size: int = 512):
@@ -160,7 +177,7 @@ class MouthRestorer:
         ps = self.parse_size
         k, _, h, w = frames.shape
         crop = crop_resize_boxes(restored, boxes, (ps, ps))
-        with full_f32():
+        with full_f32(), bf16_autocast(crop.device, self.restorer.det_dtype):
             logits, _ = self.parsenet(crop / 255.0 * 2.0 - 1.0)
         mm = parse_mask(logits.float(), MOUTH_COLORMAP)[:, None] / 255.0
         mouth = paste_resize_boxes(frames.new_zeros(k, 1, h, w), mm, boxes)
@@ -188,13 +205,42 @@ class MouthRestorer:
 
 
 def make_mouth_restorer(models: dict, chunk: int = 16, parse_size: int = 512,
-                        dtype: str = "bfloat16", device=None) -> Optional[MouthRestorer]:
+                        dtype: str = "bfloat16", approx_warp: bool = False,
+                        det_dtype: str = "float32", device=None) -> Optional[MouthRestorer]:
     """The reference's Step-6 tail (inference.py:299-312). models needs
-    'retinaface', 'gfpgan' (GFPGANv1Clean) and 'parsenet'; returns None
-    unless all three are given (as s2v_tpu's cli builds the hook only
-    then)."""
+    'retinaface', 'gfpgan' (GFPGANv1Clean or GFPGANv1) and 'parsenet';
+    returns None unless all three are given (as s2v_tpu's cli builds the
+    hook only then). ``det_dtype`` sets both RetinaFace's and ParseNet's
+    convs, as s2v_tpu's cli sets both from ``model.detector_dtype``."""
     if not all(models.get(k) is not None for k in ("retinaface", "gfpgan", "parsenet")):
         return None
     restorer = GFPGANRestorer({k: models[k] for k in ("retinaface", "gfpgan")}, chunk=chunk,
-                              dtype=dtype, device=device)
+                              dtype=dtype, approx_warp=approx_warp, det_dtype=det_dtype,
+                              device=device)
     return MouthRestorer(restorer, models["parsenet"], parse_size)
+
+
+def make_up_face_editor(models: dict, up_face: str, device=None) -> Optional[Callable]:
+    """The GANimation hook of ``--up_face`` (inference.py:269-281; s2v_tpu's
+    ``make_up_face_editor``): None for ``original`` or without a
+    'ganimation' SplitGenerator. The hook takes the original face crops
+    [B, 3, S, S] in 0..1 on the device (S is 384 in the pipeline), resizes
+    them bilinearly to 128^2 in [-1, 1], runs the SplitGenerator with the
+    ``EXP_AUS`` row of ``up_face`` (full f32), composites with its
+    attention mask and resizes back to S^2, clipped to [0, 1]."""
+    if up_face == "original" or models.get("ganimation") is None:
+        return None
+    dev = resolve_device(device)
+    gen = models["ganimation"].to(dev).eval()
+    aus = torch.tensor(EXP_AUS[up_face], dtype=torch.float32, device=dev)[None]
+
+    @torch.no_grad()
+    def hook(faces01: torch.Tensor) -> torch.Tensor:
+        small = resize_bilinear(faces01 * 2.0 - 1.0, (128, 128))
+        with full_f32():
+            color, att, _ = gen(small, aus.expand(len(small), -1))
+        fake = apply_expression(small, color, att)
+        return torch.clamp(resize_bilinear(fake / 2.0 + 0.5, faces01.shape[2:]), 0.0, 1.0)
+
+    hook.generator = gen
+    return hook

@@ -58,15 +58,17 @@ class ModelConfig:
     coeff_nc: int = 73           # 70 coeffs + 3 trans params fed to MappingNet
     dtype: str = "bfloat16"      # compute dtype of the generators on the card
     param_dtype: str = "float32"
-    # Compute dtype of the detection and landmark sweeps (S3FD, FAN and
-    # RetinaFace). The port runs them in float32 only; bfloat16 raises
-    # NotImplementedError (ROADMAP queue 5).
+    # Compute dtype of the detection and landmark convs (S3FD, FAN and
+    # RetinaFace; ParseNet in the mouth tail too, as s2v_tpu's cli sets
+    # it). bfloat16 runs them under bf16 autocast; box, landmark and anchor
+    # decodes stay float32.
     detector_dtype: str = "float32"
     # ParseNet working resolution in the enhancement and restoration
     # stages; 512 is the reference geometry (face_parsing.py).
     parse_size: int = 512
-    # s2v_tpu's approximate sheared warps; the port has only the exact warp
-    # and raises NotImplementedError when this is set (ROADMAP queue 5).
+    # s2v_tpu's approximate sheared warps (``ops.warp.affine_warp_shear``)
+    # for the similarity warps of Step 5, the mouth tail, the final stage
+    # and the reference faces; False keeps the exact ``affine_warp``.
     approx_warp: bool = False
     # Reuse the pipeline's 68-point landmark sweeps (mapped to 5 points)
     # instead of RetinaFace passes: one sweep of the stabilised frames feeds

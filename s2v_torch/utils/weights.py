@@ -566,3 +566,84 @@ def component_disc_from_jax(variables) -> StateDict:
                        ("conv4", True), ("conv5", False), ("final_conv", False)):
         _gpen_convlayer(p[name], name, sd, downsample=down)
     return sd
+
+
+def ganimation_from_jax(variables) -> StateDict:
+    """s2v_tpu SplitGenerator variables -> the reference's ``model.N`` /
+    ``color_top.0`` / ``au_top.0`` keys, the inverse of
+    ``convert_ganimation``."""
+    p = variables["params"]
+    sd: StateDict = {}
+    _conv(p["head"], "model.0", sd)
+    _conv(p["down0"], "model.3", sd)
+    _conv(p["down1"], "model.6", sd)
+    n = sum(1 for k in p if k.startswith("res"))
+    for i in range(n):
+        _conv(p[f"res{i}"]["conv1"], f"model.{9 + i}.conv_block.0", sd)
+        _conv(p[f"res{i}"]["conv2"], f"model.{9 + i}.conv_block.3", sd)
+    _conv_transpose(p["up0"], f"model.{9 + n}", sd)
+    _conv_transpose(p["up1"], f"model.{12 + n}", sd)
+    _conv(p["color_top"], "color_top.0", sd)
+    _conv(p["au_top"], "au_top.0", sd)
+    return sd
+
+
+def _bsr_styleconv(d, prefix: str, sd: StateDict, upsample: bool) -> None:
+    """JAX StyledConv (isconcat=False) -> basicsr's StyleConv keys."""
+    _modconv(d["conv"], f"{prefix}.modulated_conv", sd)
+    if upsample:
+        sd[f"{prefix}.modulated_conv.smooth.kernel"] = _t(make_kernel(BLUR_TAPS) * 4)
+    sd[f"{prefix}.weight"] = _t(np.asarray(d["noise_weight"]).reshape(1))
+    sd[f"{prefix}.activate.bias"] = _t(d["act_bias"])
+
+
+def _bsr_torgb(d, prefix: str, sd: StateDict, upsample: bool) -> None:
+    _modconv(d["conv"], f"{prefix}.modulated_conv", sd)
+    sd[f"{prefix}.bias"] = _t(np.asarray(d["bias"]).reshape(1, 3, 1, 1))
+    if upsample:
+        sd[f"{prefix}.upsample.kernel"] = _t(make_kernel(BLUR_TAPS) * 4)
+
+
+def gfpgan_v1_from_jax(variables) -> StateDict:
+    """s2v_tpu GFPGANv1 (the original arch) variables -> GFPGANv1 state_dict
+    with basicsr's key names, the inverse of ``convert_gfpgan_v1``. The FIR
+    buffers are the fixed blur taps; the decoder's ``noises.noise{j}``,
+    which the converter drops, come back as zeros of their reference
+    shapes, so that the load is strict."""
+    p = variables["params"]
+    sd: StateDict = {}
+    _gpen_convlayer(p["conv_body_first"], "conv_body_first", sd, downsample=False)
+    _gpen_convlayer(p["final_conv"], "final_conv", sd, downsample=False)
+    _linear(p["final_linear"], "final_linear", sd)
+    n = sum(1 for k in p if k.startswith("conv_body_down"))
+    for i in range(n):
+        down, pre = p[f"conv_body_down{i}"], f"conv_body_down.{i}"
+        _gpen_convlayer(down["conv1"], f"{pre}.conv1", sd, downsample=False)
+        _gpen_convlayer(down["conv2"], f"{pre}.conv2", sd, downsample=True)
+        _gpen_convlayer(down["skip"], f"{pre}.skip", sd, downsample=True)
+        up, pre = p[f"conv_body_up{i}"], f"conv_body_up.{i}"
+        _gpen_convlayer(up["conv1"], f"{pre}.conv1", sd, downsample=False)
+        _conv(up["conv2"]["conv"], f"{pre}.conv2", sd)
+        sd[f"{pre}.conv2.activation.bias"] = _t(up["conv2"]["act_bias"])
+        _conv(up["skip"]["conv"], f"{pre}.skip", sd)
+        for kind in ("scale", "shift"):
+            for j, idx in ((0, 0), (1, 2)):
+                _conv(p[f"condition_{kind}{i}_{j}"], f"condition_{kind}.{i}.{idx}", sd)
+        _conv(p[f"toRGB{i}"], f"toRGB.{i}", sd)
+    dec, pre = p["stylegan_decoder"], "stylegan_decoder"
+    sd[f"{pre}.constant_input.weight"] = _t(
+        np.transpose(np.asarray(dec["constant_input"]), (0, 3, 1, 2)))
+    n_mlp = sum(1 for k in dec if k.startswith("style") and k[5:].isdigit())
+    for i in range(n_mlp):
+        _linear(dec[f"style{i}"], f"{pre}.style_mlp.{i + 1}", sd)
+    _bsr_styleconv(dec["style_conv1"], f"{pre}.style_conv1", sd, upsample=False)
+    _bsr_torgb(dec["to_rgb1"], f"{pre}.to_rgb1", sd, upsample=False)
+    for k in range(2 * n):
+        _bsr_styleconv(dec[f"style_convs{k}"], f"{pre}.style_convs.{k}", sd,
+                       upsample=k % 2 == 0)
+    for k in range(n):
+        _bsr_torgb(dec[f"to_rgbs{k}"], f"{pre}.to_rgbs.{k}", sd, upsample=True)
+    for j in range(2 * n + 1):
+        res = 2 ** ((j + 5) // 2)
+        sd[f"{pre}.noises.noise{j}"] = torch.zeros(1, 1, res, res)
+    return sd

@@ -15,7 +15,12 @@ converters fix (LNet's 9 decoder blocks, ParseNet's 10, RRDBNet's 23, the
   the same files; the hooks exist exactly where s2v_tpu's do, for several
   subsets of the files and with the ``weights/`` subfolder; RetinaFace and
   ParseNet are one module each.
-- The settings the port does not have yet raise NotImplementedError.
+- ``parallel.infer_mesh``, the one setting the port does not have yet,
+  raises NotImplementedError; every other setting of s2v_tpu's ``infer``
+  loads and reaches the modules that run it, and a directory whose only
+  GFPGAN is a GFPGANv1.pth (the original arch, slim at out_size 512: the
+  depth ``convert_gfpgan_v1`` fixes) or that holds a GANimation file
+  loads them as s2v_tpu's ``load_models`` does (the same trees).
 - ``main(["infer", ...], device="cpu")`` writes the output file. The
   GPEN-BFR-2048 file is left out of that run: its final stage at 2048^2
   costs over a minute on the CPU (the smoke runs it on the card).
@@ -36,13 +41,15 @@ from s2v_torch.io.audio_io import load_wav
 from s2v_torch.models.dnet import DNet, dnet_arch
 from s2v_torch.models.enet import ENet, enet_arch
 from s2v_torch.models.fan import FAN
-from s2v_torch.models.gfpgan import GFPGANv1Clean, gfpgan_arch
+from s2v_torch.models.ganimation import SplitGenerator, ganimation_arch
+from s2v_torch.models.gfpgan import GFPGANv1, GFPGANv1Clean, gfpgan_arch
 from s2v_torch.models.gpen import FullGenerator, fullgenerator_arch
 from s2v_torch.models.parsenet import ParseNet, parsenet_arch
 from s2v_torch.models.resnet import ReconNet, recon_arch
 from s2v_torch.models.retinaface import RetinaFace, retinaface_arch
 from s2v_torch.models.rrdbnet import RRDBNet, rrdbnet_arch
 from s2v_torch.models.s3fd import S3FD
+from s2v_torch.ops.warp import affine_warp_shear
 from s2v_torch.pipeline import inference as t_inf
 from s2v_torch.utils.weights import load_torch_checkpoint
 from s2v_tpu import cli as j_cli
@@ -52,6 +59,7 @@ from test_torch_models import assert_same_tree, numpy_sd
 LM3D = np.asarray([[-0.3, 0.2, 0.1], [0.3, 0.2, 0.1], [0.0, 0.0, 0.3],
                    [-0.2, -0.3, 0.1], [0.2, -0.3, 0.1]], np.float64)
 SLIM_GPEN = dict(narrow=0.25, channel_multiplier=0.5, style_dim=64)
+GFPGANER = dict(input_is_latent=True, different_w=True, sft_half=True)
 STACK = ("RetinaFace-R50.pth", "ParseNet-latest.pth", "GFPGANv1.4.pth", "GPEN-BFR-512.pth",
          "GPEN-BFR-2048.pth", "realesrnet_x2.pth")
 
@@ -65,6 +73,8 @@ def seeded_modules():
         retinaface=RetinaFace(out_channel=64),
         parsenet=ParseNet(base_ch=16, max_ch=32, min_ch=8, res_depth=10),
         gfpgan=GFPGANv1Clean(num_style_feat=64, channel_multiplier=0.5, narrow=0.25),
+        gfpgan_v1=GFPGANv1(num_style_feat=64, narrow=0.25, **GFPGANER),
+        ganimation=SplitGenerator(ngf=8),
         gpen512=FullGenerator(size=512, **SLIM_GPEN),
         gpen2048=FullGenerator(size=2048, **SLIM_GPEN),
         srmodel=RRDBNet(scale=2, num_feat=16, num_block=23, num_grow_ch=8))
@@ -157,14 +167,21 @@ SLIM = dict(
              dict(scale=2)),
     gfpgan=(lambda: GFPGANv1Clean(out_size=64, num_style_feat=64, channel_multiplier=0.5,
                                   narrow=0.5, num_mlp=2), gfpgan_arch, dict(out_size=64)),
-    retinaface=(lambda: RetinaFace(out_channel=64), retinaface_arch, {}))
+    retinaface=(lambda: RetinaFace(out_channel=64), retinaface_arch, {}),
+    gfpgan_v1=(lambda: GFPGANv1(out_size=64, num_style_feat=64, narrow=0.5, num_mlp=2,
+                                **GFPGANER),
+               functools.partial(gfpgan_arch, arch="original", **GFPGANER), dict(out_size=64)),
+    ganimation=(lambda: SplitGenerator(ngf=8, n_blocks=2), ganimation_arch, {}))
 PRODUCTION = dict(
     enet=(ENet, enet_arch, {}), dnet=(DNet, dnet_arch, {}), recon=(ReconNet, recon_arch, {}),
     gpen=(lambda: FullGenerator(size=2048), fullgenerator_arch, dict(size=2048)),
     parsenet=(ParseNet, parsenet_arch, {}),
     rrdbnet=(lambda: RRDBNet(scale=2, num_feat=64, num_block=23, num_grow_ch=32), rrdbnet_arch,
              dict(scale=2)),
-    gfpgan=(GFPGANv1Clean, gfpgan_arch, {}), retinaface=(RetinaFace, retinaface_arch, {}))
+    gfpgan=(GFPGANv1Clean, gfpgan_arch, {}), retinaface=(RetinaFace, retinaface_arch, {}),
+    gfpgan_v1=(lambda: GFPGANv1(**GFPGANER),
+               functools.partial(gfpgan_arch, arch="original", **GFPGANER), {}),
+    ganimation=(SplitGenerator, ganimation_arch, {}))
 
 
 @pytest.mark.parametrize("widths, name", [(w, n) for w in ("slim", "production") for n in SLIM])
@@ -226,32 +243,62 @@ def test_gfpgan_v13_is_taken_when_v14_is_absent(ckpt, tmp_path):
     ["--parallel.infer_mesh", "true"], ["--model.approx_warp", "true"],
     ["--model.detector_dtype", "bfloat16"], ["--box", "0", "64", "0", "64"],
     ["--cropped_image"], ["--without_rl1"]])
-def test_unported_settings_raise(tmp_path, flags):
+def test_unported_settings_raise(ckpt, tmp_path, flags):
+    """Only the mesh is refused, by load_models and the pipeline alike;
+    the other settings load from the files and reach what runs them."""
     cfg = t_cli.parse_args(flags)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, queue"):
-        t_cli.load_models(str(tmp_path), cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, queue"):
-        t_inf.LipSyncPipeline(cfg, t_inf.PipelineModels(), device="cpu")
+    if flags[0] == "--parallel.infer_mesh":
+        with pytest.raises(NotImplementedError, match="ROADMAP.md, queue 4"):
+            t_cli.load_models(str(tmp_path), cfg, device="cpu")
+        with pytest.raises(NotImplementedError, match="ROADMAP.md, queue 4"):
+            t_inf.LipSyncPipeline(cfg, t_inf.PipelineModels(), device="cpu")
+        return
+    models = t_cli.load_models(subset(ckpt, tmp_path, only=STACK), cfg, device="cpu")
+    pipe = t_inf.LipSyncPipeline(cfg, models, device="cpu")
+    restorer, final = models.mouth_restorer.restorer, models.final_enhancer.enhancer
+    step5 = models.ref_enhancer.enhancer
+    shear = cfg.model.approx_warp
+    assert all((e.warp is affine_warp_shear) == shear for e in (restorer, final, step5))
+    det = cfg.model.detector_dtype
+    assert restorer.det_dtype == final.det_dtype == step5.det_dtype == det
+    assert pipe.cfg.infer.box == (tuple(int(v) for v in flags[1:]) if flags[0] == "--box"
+                                  else (-1, -1, -1, -1))
+    assert pipe.cfg.infer.cropped_image == (flags == ["--cropped_image"])
+    assert pipe.cfg.infer.without_rl1 == (flags == ["--without_rl1"])
 
 
-@pytest.mark.parametrize("files, flags, refused", [
+@pytest.mark.parametrize("files, flags, new_path", [
     (("GFPGANv1.pth",), [], True), (("GFPGANv1.pth", "GFPGANv1.4.pth"), [], False),
     (("30_net_gen.pth",), ["--up_face", "angry"], True),
     (("ganimation.pth",), ["--up_face", "sad"], True), (("30_net_gen.pth",), [], False)])
-def test_unported_checkpoints_raise(ckpt, tmp_path, files, flags, refused):
-    """Only the GFPGANv1 'original' arch, or a GANimation edit: refused
-    before any file is read (the files here are empty)."""
+def test_unported_checkpoints_raise(ckpt, tmp_path, files, flags, new_path):
+    """Nothing is refused any more. A GFPGANv1.pth without v1.4 or v1.3 is
+    the original arch with GFPGANer's wiring, else v1.4 wins; a GANimation
+    file (either name) gives an editor exactly when --up_face is not
+    original (``new_path``: the cases this port took up last). The loaded
+    trees are s2v_tpu's load_models' for the same files."""
+    root = subset(ckpt, tmp_path, only=("RetinaFace-R50.pth", "ParseNet-latest.pth"))
     for name in files:
-        if name == "GFPGANv1.4.pth":
-            os.symlink(os.path.join(ckpt, name), tmp_path / name)
-        else:
-            (tmp_path / name).write_bytes(b"")
+        src = "30_net_gen.pth" if name == "ganimation.pth" else name
+        os.symlink(os.path.join(ckpt, src), os.path.join(root, name))
     cfg = t_cli.parse_args(flags)
-    if refused:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md, queue 5"):
-            t_cli.load_models(str(tmp_path), cfg, device="cpu")
+    port = t_cli.load_models(root, cfg, device="cpu")
+    jax_models = j_cli.load_models(root, j_cli.parse_args(flags))
+    if "GFPGANv1.pth" in files:
+        gfpgan = port.mouth_restorer.restorer.models["gfpgan"]
+        assert isinstance(gfpgan, GFPGANv1) == new_path
+        if new_path:
+            assert gfpgan.input_is_latent and gfpgan.different_w
+            tree = JW.convert_gfpgan_v1(numpy_sd(gfpgan.state_dict()))
+            assert_same_tree(tree, jax_models.mouth_restorer.restorer.models["gfpgan"])
+            assert t_inf.LipSyncPipeline(cfg, port, device="cpu").models.mouth_restorer
     else:
-        assert t_cli.load_models(str(tmp_path), cfg, device="cpu").s3fd is None
+        assert (port.up_face_editor is not None) == new_path
+        assert (jax_models.up_face_editor is not None) == new_path
+        assert_same_tree(JW.convert_ganimation(numpy_sd(port.ganimation.state_dict())),
+                         jax_models.ganimation)
+        if new_path:
+            assert port.up_face_editor.generator is port.ganimation
 
 
 @pytest.mark.parametrize("command, queue", [("bench", 1)])

@@ -574,3 +574,109 @@ def test_component_discriminator_on_the_card_matches_the_cpu(card, size):
     for a, ref in zip(got_grads, want_grads):
         assert a.shape == ref.shape
         assert (a.cpu() - ref).norm().item() <= 5e-3 * ref.norm().item()
+
+
+GFPGANER = dict(input_is_latent=True, different_w=True)  # gfpgan/utils.py:63-74
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sft_half", [True, False])
+def test_gfpgan_v1_on_the_card_matches_the_cpu(card, sft_half):
+    """The original GFPGANv1 at out_size 64 (slim), its K1 and K3 sites on
+    the kernels, f32 without TF32: 1e-4 of the output's scale; one forward
+    launches ``forward_launches`` kernels."""
+    from s2v_torch.models.gfpgan import GFPGANv1, forward_launches
+    from s2v_torch.ops.kernels import reset_launch_counts
+
+    torch.manual_seed(17)
+    model = GFPGANv1(out_size=64, num_style_feat=64, channel_multiplier=0.5, narrow=0.5,
+                     sft_half=sft_half, **GFPGANER).eval()
+    x = torch.rand(2, 3, 64, 64) * 2 - 1
+    with torch.no_grad():
+        want, want_rgbs = model(x)
+        model.to(card)
+        reset_launch_counts()
+        got, got_rgbs = model(x.to(card))
+        counts = launch_counts()
+    assert counts == forward_launches(model)
+    for g, w in zip([got, *got_rgbs], [want, *want_rgbs]):
+        assert (g.cpu() - w).abs().max().item() <= 1e-4 * max(1.0, w.abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("inverse", [False, True])
+def test_affine_warp_shear_on_the_card_matches_the_cpu(card, inverse):
+    """The approximate warp of a 4-channel 96x112 frame to a 512^2 crop
+    (the mouth tail's geometry) and its inverse paste, f32: within 1e-3 on
+    0..255 (its matmuls in full f32 on both)."""
+    from s2v_torch.ops.warp import affine_warp_shear
+
+    g = torch.Generator().manual_seed(18)
+    t = np.deg2rad(-4.0)
+    fwd = np.asarray([[[np.cos(t) * 5.3, -np.sin(t) * 5.3, -130.0],
+                       [np.sin(t) * 5.3, np.cos(t) * 5.3, -90.0]]], np.float32)
+    if inverse:
+        src, out_hw = torch.rand(1, 4, 512, 512, generator=g) * 255, (96, 112)
+    else:
+        src, out_hw = torch.rand(1, 4, 96, 112, generator=g) * 255, (512, 512)
+    mats = torch.from_numpy(fwd)
+    want = affine_warp_shear(src, mats, out_hw, inverse=inverse)
+    got = affine_warp_shear(src.to(card), mats.to(card), out_hw, inverse=inverse).cpu()
+    assert got.shape == want.shape and want.abs().max().item() > 1.0
+    assert (got - want).abs().max().item() <= 1e-3
+
+
+@pytest.mark.cuda
+def test_up_face_editor_on_the_card_matches_the_cpu(card):
+    """The GANimation editor (ngf 64, 6 blocks, random weights) on two
+    384^2 faces, full f32: within 1e-4 on 0..1."""
+    from s2v_torch.models.ganimation import SplitGenerator
+    from s2v_torch.pipeline.restoration import make_up_face_editor
+
+    torch.manual_seed(19)
+    faces = torch.rand(2, 3, 384, 384)
+    out = {}
+    for dev in ("cpu", card):
+        hook = make_up_face_editor({"ganimation": SplitGenerator()}, "surprise", device=dev)
+        torch.manual_seed(20)
+        hook.generator.load_state_dict(SplitGenerator().state_dict())
+        out[str(dev)] = hook(faces.to(dev)).cpu()
+    assert out["cuda"].shape == faces.shape
+    assert (out["cuda"] - out["cpu"]).abs().max().item() <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("approx_warp", [False, True])
+def test_mouth_hook_with_gfpgan_v1_on_the_card_matches_the_cpu(card, approx_warp):
+    """The slim mouth tail with the original GFPGANv1 (out_size 64, its
+    ToRGB layers scaled by 0.04 as the CPU tests scale them), detecting,
+    f32, exact or approximate warps: within one gray level (at most 0.1% of
+    subpixels off by more than 1, a mean difference under 0.01); every
+    face valid, the boxes' pixels moved."""
+    from s2v_torch.models.gfpgan import GFPGANv1, ToRGBV1
+    from s2v_torch.pipeline.restoration import make_mouth_restorer
+
+    models = _slim_tail()
+    torch.manual_seed(21)
+    v1 = GFPGANv1(out_size=64, num_style_feat=64, channel_multiplier=0.5, narrow=0.5,
+                  sft_half=True, **GFPGANER)
+    with torch.no_grad():
+        for m in v1.modules():
+            if isinstance(m, ToRGBV1):
+                m.modulated_conv.weight *= 0.04
+                m.bias *= 0.04
+    models["gfpgan"] = v1.eval()
+    frames = _frames(4, 96, 112, 14)
+    boxes = np.tile(np.asarray([26, 18, 86, 80], np.float32), (4, 1))
+    out = {}
+    for dev in ("cpu", card):
+        hook = make_mouth_restorer(models, chunk=3, parse_size=128, dtype="float32",
+                                   approx_warp=approx_warp, device=dev)
+        with torch.no_grad():
+            _, _, valid = hook.restorer._detect(frames.to(dev).permute(0, 3, 1, 2).float())
+        assert valid.all()
+        out[str(dev)] = hook(frames, boxes).cpu()
+    d = (out["cuda"].int() - out["cpu"].int()).abs().float()
+    assert (d > 1).float().mean().item() <= 1e-3 and d.mean().item() < 0.01
+    change = (out["cpu"][:, 18:80, 26:86].int() - frames[:, 18:80, 26:86].int()).abs()
+    assert change.float().mean().item() > 5.0

@@ -11,9 +11,10 @@ tests/test_torch_pipeline.py) and inputs:
 - the mouth hook (``make_mouth_restorer``) detecting and with
   ``landmarks5``;
 - ``FaceEnhancer``'s non-SR Laplacian composites, ``possion`` (boxes) and
-  ``possion_nobbox``;
-- ``synthesize`` with the mouth tail and the final hook, in the default
-  configuration and under ``reuse_detections``.
+  ``possion_nobbox``.
+
+``synthesize`` with the mouth tail is in tests/test_torch_mouth_synthesize.py
+(the two files take about the same time).
 
 s2v_tpu's ``make_mouth_restorer`` builds its restorer in bf16; the tests
 hand it one built in f32 (as tests/test_restoration_tail.py hands it one).
@@ -44,33 +45,34 @@ import jax.numpy as jnp
 
 import s2v_tpu.pipeline.restoration as JR
 from s2v_torch.models import retinaface as t_rf
-from s2v_torch.models.enet import ENet as TENet
 from s2v_torch.models.gfpgan import GFPGANv1Clean as TGFPGAN
 from s2v_torch.models.parsenet import MOUTH_COLORMAP, parse_mask
 from s2v_torch.models.parsenet import ParseNet as TParseNet
 from s2v_torch.ops.warp import crop_resize_boxes
 from s2v_torch.pipeline import enhance as t_enh
-from s2v_torch.pipeline import inference as t_inf
 from s2v_torch.pipeline import restoration as TR
 from s2v_torch.pipeline import utils as TU
-from s2v_torch.utils import config as t_cfg
 from s2v_torch.utils import weights as TW
 from s2v_tpu.models import retinaface as j_rf
 from s2v_tpu.models.fan import lm68_to_lm5
 from s2v_tpu.models.parsenet import ParseNet
 from s2v_tpu.pipeline import utils as JU
 from s2v_tpu.pipeline.enhance import FaceEnhancer
-from s2v_tpu.pipeline.inference import LipSyncPipeline, PipelineModels
-from s2v_tpu.utils.config import PipelineConfig, override
 from slim_zoo import SLIM_GFPGAN_KW
 from test_torch_gfpgan import jax_vars
 from test_torch_models import load
-from test_torch_pipeline import ENET_KW, IN_SIZE, PARSE, PARSE_KW, assert_close_frames, slice_inputs
+from test_torch_pipeline import IN_SIZE, PARSE, PARSE_KW, assert_close_frames
 from test_torch_step5 import (FACE_BIAS, THRESHOLD_LOGIT, assert_detects, face_logits,
-                              jax_final, port_final, port_models, stab_frames, up2,
-                              with_face_bias)
+                              port_models, stab_frames, with_face_bias)
 from test_torch_step5 import weights as step5_weights  # noqa: F401 (a fixture)
-from torch_parity import fixed_landmarks, random_variables
+from torch_parity import fixed_landmarks, one_torch_thread, random_variables
+
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    with one_torch_thread():
+        yield
+
 
 N, H, W = 4, 96, 112
 SIZE = 64  # GFPGAN's out_size and the restorer's template size
@@ -331,57 +333,6 @@ def test_enhancer_laplacian_composites_match_jax(step5_weights, with_boxes):  # 
     got = tenh.process_batch(frames, face_enhance=True, possion_blending=True, bboxes=bb)
     assert_close_frames(got.numpy(), want)
     assert np.abs(want.astype(np.int32) - frames).mean() > 1.0
-
-
-@pytest.mark.parametrize("reuse", [False, True])
-def test_synthesize_with_the_mouth_tail_matches_jax(tail_weights, step5_weights,  # noqa: F811
-                                                    monkeypatch, reuse):
-    """Step 6 with the mouth tail and the final hook: in the default
-    configuration both detect with RetinaFace (on the pasted frames and on
-    their bilinear-2x frames), under reuse_detections both take the Step-1
-    landmarks."""
-    v = dict(step5_weights, **tail_weights)
-    retina = level2_face(v["retinaface"])
-    # the final stage keeps tests/test_torch_step5.py's ParseNet: with the
-    # tail's, its face mask would cover the whole crop, and the random
-    # GPEN's saturated output would land on integers (see ``unsaturated``)
-    final_v = step5_weights
-    x = slice_inputs(n=N)
-    jcfg = override(PipelineConfig(), {"model.dtype": "float32", "infer.lnet_batch_size": 4,
-                                       "model.reuse_detections": str(reuse).lower()})
-    seen = {"mouth": [], "final": []}
-
-    def recorded(hook, key):
-        def run(frames, boxes, **kw):
-            seen[key].append((np.asarray(frames), np.asarray(boxes)))
-            return hook(frames, boxes, **kw)
-        return run
-
-    jmouth = jax_mouth(v, retina, monkeypatch)
-    jpipe = LipSyncPipeline(jcfg, PipelineModels(
-        enet=v["enet"], mouth_restorer=recorded(jmouth, "mouth"),
-        final_enhancer=recorded(jax_final(final_v, retina), "final")))
-    kw = dict(boxes_full=x["boxes"], lms_stab=x["lms_stab"],
-              lms_full=x["lms_full"] if reuse else None)
-    want = jpipe.synthesize(x["stab"], jnp.asarray(x["mel"]), x["frames"], x["coords"], 25.0,
-                            **kw)
-    tcfg = t_cfg.PipelineConfig(model=t_cfg.ModelConfig(dtype="float32", reuse_detections=reuse),
-                                infer=t_cfg.InferenceConfig(lnet_batch_size=4))
-    tpipe = t_inf.LipSyncPipeline(
-        tcfg, t_inf.PipelineModels(enet=load(TENet(**ENET_KW), TW.enet_from_jax(v["enet"])),
-                                   mouth_restorer=port_mouth(v, retina),
-                                   final_enhancer=port_final(final_v, retina)),
-        device="cpu")
-    got = tpipe.synthesize(x["stab"], torch.from_numpy(x["mel"].copy()), x["frames"],
-                           x["coords"], 25.0, **kw)
-    pasted, boxes = (np.concatenate(t) for t in zip(*seen["mouth"]))
-    tailed = np.concatenate([f for f, _ in seen["final"]])
-    if not reuse:
-        assert_detects(retina, pasted, [True] * len(pasted))
-        assert_detects(retina, up2(tailed), [True] * len(tailed))
-    assert want.shape == (len(pasted), 2 * H, 2 * W, 3)
-    assert_close_frames(got, want)
-    assert changed_in_boxes(tailed, pasted, boxes) > 5.0  # the tail ran
 
 
 def test_restorer_entry_points_refuse_without_a_card(tail_weights):

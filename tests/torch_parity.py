@@ -1,6 +1,9 @@
-"""Shared helper of the port's parity tests (tests/test_torch_*.py)."""
+"""Shared helpers of the port's parity tests (tests/test_torch_*.py)."""
+
+import contextlib
 
 import numpy as np
+import torch
 from flax import traverse_util
 
 import jax
@@ -47,3 +50,17 @@ def fixed_landmarks(n, h, w, seed):
         return e2e.synthetic_landmarks(n, h, w)
     finally:
         e2e.RNG = shared
+
+
+@contextlib.contextmanager
+def one_torch_thread():
+    """torch on one intra-op thread inside. The suite runs six workers on
+    the machine's cores and torch takes a thread per core in each: a slim
+    ``synthesize`` that takes 1 s alone took 50-100 s so, against 2.5 s on
+    one thread."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
