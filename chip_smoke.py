@@ -175,11 +175,44 @@ result line:
    one at Step 5's and the tail's shapes, over 45 dB, and card vs CPU
    (``run_options``, ``approx_warp_checks``).
 
+17. infer mesh (run after phase 8, on its files and clip):
+   ``s2v_torch.cli.main(["infer", ..., "--parallel.infer_mesh", "true"])``
+   on the one-card mesh, then ``load_models(..., mesh=make_mesh(devices=
+   ["cuda:0", "cuda:0"]))`` and ``LipSyncPipeline.run`` with two replicas on
+   the card, so that every stage's split and gather run on the device. Each
+   output within one gray level of phase 8's cold run on all but 0.1% of its
+   subpixels, every face valid, and K1/K3 launches equal to the count
+   derived from GPEN-BFR-2048's kernel sites and the forwards the mesh's
+   chunking gives (``run_infer_mesh``).
+18. gan data-parallel: a one-rank NCCL group (``FileStore``); GPEN-BFR-512
+   step pairs 0-1 (R1 at 0) at phase 11's batch through
+   ``make_gan_trainer(..., mesh=make_process_mesh())`` against the trainer
+   without a mesh from the same state and batch: pair 0's gradients (R1's
+   D step, then G's) within 1e-3 and the parameters after both pairs
+   within 1e-4 relative L2 (``GAN_DP_TOL``), launches per step equal to
+   ``expected_train_launches``. Then two gloo ranks sharing the card (NCCL
+   refuses two ranks on one device), each on half the batch, within the
+   same bounds of the one-rank run with both ranks' replicas bit-equal,
+   and the same two ranks with the minibatch stddev taken over each rank's
+   own half (a planted fault) outside them; if gloo refuses a collective
+   on CUDA tensors, a line names it and that check stays in the CPU tests
+   (``phase_gan_dp``).
+19. arcface: ``make_arcface_trainer`` at full width on the one-rank NCCL
+   mesh (IResNet-50, 512-d, 112^2, batch 128, 85,742 classes: arcface_torch's
+   configs/ms1mv2_r50.py), a new random batch each step, f32: 5 steps at
+   sample_rate 1.0 and 5 from a fresh state at 0.1, ms per step and peak
+   memory printed, finite losses, and at 0.1 the classifier rows changed
+   only where some step sampled them and at every positive; then the slim
+   trainer ((1, 1, 1, 1), 64-d, 16 classes, lr 1e-3, weight decay 0.5) on
+   the card and on the CPU from the same state and batch, each of 2 steps'
+   updates and the state within ``ARC_SLIM_TOL`` (``phase_arcface``).
+
 Every time printed stands beside the card's name and power limit (printed
 first). The line before the last is one JSON object with every kernel's
 numbers, its launches summed over the main paths (the inference slice, the
-CLI's cold run, the first opt-in infer run, GPEN training, the train
-command and GFPGAN training) and split by path; the last is
+CLI's cold run, the first opt-in infer run, the one-card mesh run, GPEN
+training, the train command, GFPGAN training and the one-rank data-parallel
+GPEN steps) and split by path; the last is
 ``{"ok": true, "device": {...}}``. Details go to
 chiprun_out/chip_smoke.json. TF32 is off throughout (f32 convs and matmuls
 run in full f32; the pipeline keeps S3FD, FAN and ReconNet so regardless).
@@ -1507,9 +1540,10 @@ def phase_cli(torch, card):
     cold, warm (the artifact cache hit: Steps 1-3 and 5 not called) and
     with --re_preprocess. Landmark-driven geometry comes from the random
     FAN here (the CLI has no injection). Then the ``train`` command on the
-    same files and clip (``run_train_cmd``) and the opt-in ``infer``
-    settings (``run_options``). Returns the CLI's launches and report, and
-    the train command's and the options' (launches, report)."""
+    same files and clip (``run_train_cmd``), the opt-in ``infer`` settings
+    (``run_options``) and ``--parallel.infer_mesh`` (``run_infer_mesh``).
+    Returns the CLI's launches and report, and the train command's, the
+    options' and the mesh's (launches, report)."""
     import shutil
     import tempfile
 
@@ -1539,9 +1573,12 @@ def phase_cli(torch, card):
               f"{time.perf_counter() - t:.1f} s")
         launches, report = run_cli(torch, card, work, ckpt)
         torch.cuda.empty_cache()
+        mesh = run_infer_mesh(torch, card, work, ckpt, np.load(report["runs"][0]["out"])["frames"])
+        torch.cuda.empty_cache()
         train_cmd = run_train_cmd(torch, card, work, ckpt)
         torch.cuda.empty_cache()
-        return launches, report, train_cmd, run_options(torch, card, work, ckpt, x["frames"])
+        return (launches, report, train_cmd, run_options(torch, card, work, ckpt, x["frames"]),
+                mesh)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -1674,6 +1711,461 @@ def run_cli(torch, card, work, ckpt):
     for r in runs:
         del r["frames"]
     return runs[0]["launches"], dict(runs=runs)
+
+
+def run_infer_mesh(torch, card, work, ckpt, want):
+    """``infer --parallel.infer_mesh true`` on the CLI phase's files and clip:
+    through ``cli.main`` on the one-card mesh, then through ``load_models(...,
+    mesh=make_mesh(devices=["cuda:0", "cuda:0"]))`` with two replicas on the
+    card, so that the split and the gather run on the device. Each run's
+    frames within one gray level of the plain run's ``want`` (0.1% of
+    subpixels at most), every face valid, K1/K3 launches as derived."""
+    from s2v_torch import cli
+    from s2v_torch.ops.kernels import launch_counts, reset_launch_counts
+    from s2v_torch.parallel.mesh import make_mesh
+    from s2v_torch.pipeline.inference import LipSyncPipeline
+    from s2v_torch.train.gan import kernel_sites
+
+    argv = ["--face", str(work / "clip.npz"), "--audio", str(work / "speech.wav"),
+            "--checkpoint_dir", ckpt, "--parallel.infer_mesh", "true"]
+    real_load = cli.load_models
+    valid, built, sites = {"step5": [], "mouth": [], "final": []}, [], {}
+
+    def load_models(*a, **k):
+        m = real_load(*a, **k)
+        record_valid(m.ref_enhancer.enhancer, valid["step5"])
+        record_valid(m.mouth_restorer.restorer, valid["mouth"])
+        record_valid(m.final_enhancer.enhancer, valid["final"])
+        sites["gpen"] = kernel_sites(m.final_enhancer.enhancer.models["facegan"])
+        built.append(m)
+        return m
+
+    def two_replicas(tag):
+        cfg = cli.parse_args(argv + ["--tmp_dir", str(work / f"tmp_{tag}")])
+        mesh = make_mesh(devices=["cuda:0", "cuda:0"])
+        pipe = LipSyncPipeline(cfg, load_models(ckpt, cfg, mesh=mesh), mesh=mesh)
+        return pipe.run(str(work / "clip.npz"), str(work / "speech.wav"),
+                        str(work / f"{tag}.npz"))
+
+    runs = []
+    try:
+        cli.load_models = load_models
+        for label, fn in (
+                ("one-card mesh (cli.main)", lambda: cli.main(
+                    ["infer", *argv, "--tmp_dir", str(work / "tmp_mesh1"),
+                     "--outfile", str(work / "mesh1.npz")])),
+                ("two replicas on the card", lambda: two_replicas("mesh2"))):
+            for v in valid.values():
+                v.clear()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            mesh = built[-1].final_enhancer.enhancer.mesh
+            runs.append(dict(label=label, wall_s=wall, launches=launch_counts(),
+                             frames=np.load(out)["frames"], mesh=repr(mesh),
+                             valid={k: valid_count(v) for k, v in valid.items()},
+                             peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                             data=mesh.shape["data"]))
+    finally:
+        cli.load_models = real_load
+    built.clear()
+
+    n = len(want)
+    # GPEN-BFR-2048 runs one frame a device per forward: a chunk of one frame
+    # per data device, split when its frames divide the data axis
+    g1, g3 = sites["gpen"]
+    report = []
+    for r in runs:
+        d = r["data"]
+        chunks = [min(d, n - i) for i in range(0, n, d)]
+        calls = sum(c if c % d == 0 else 1 for c in chunks)
+        expect = {"fused_act": g1 * calls, "fused_act_bwd": 0, "upfirdn2d": g3 * calls}
+        diff = np.abs(r.pop("frames").astype(np.int32) - want.astype(np.int32))
+        r.update(expect=expect, gpen_calls=calls, subpixels_differing=int((diff > 0).sum()),
+                 share_over_1=float((diff > 1).mean()), frames_per_s=n / r["wall_s"])
+        ok = (r["launches"] == expect and r["share_over_1"] <= 1e-3
+              and r["valid"]["mouth"] == (n, n) and r["valid"]["final"] == (n, n)
+              and r["valid"]["step5"] == (8, 8))
+        print(f"infer mesh: {r['label']} {r['mesh']}: {r['wall_s']:.2f} s with load_models "
+              f"({r['frames_per_s']:.2f} frames/s), peak {r['peak_gib']:.1f} GiB; launches "
+              f"{r['launches']}, derived {expect} ({calls} GPEN-2048 forwards of {g1} K1 and "
+              f"{g3} K3 sites); {r['subpixels_differing']} subpixels differ from the plain "
+              f"run's ({r['share_over_1']:.2e} by more than 1, tol 1e-3); valid faces "
+              f"{r['valid']}; {'ok' if ok else 'FAIL'}; {card}")
+        if not ok:
+            fail(f"infer mesh {r['label']}: launches {r['launches']} (want {expect}), "
+                 f"{r['share_over_1']:.2e} of subpixels off by more than 1, valid {r['valid']}")
+        report.append(r)
+    return runs[0]["launches"], report
+
+
+def init_nccl(torch, work):
+    """A one-rank NCCL group met through a FileStore in ``work``."""
+    import datetime
+
+    import torch.distributed as dist
+
+    dist.init_process_group("nccl", store=dist.FileStore(str(work / "nccl_store"), 1), rank=0,
+                            world_size=1, timeout=datetime.timedelta(seconds=300))
+
+
+GAN_DP_PAIRS = 2
+
+
+def gan_dp_run(torch, mesh, shard=(0, 1), seed=0):
+    """GPEN-BFR-512 step pairs 0-1 (R1 at 0) from ``gan_models`` seed 0 on
+    the training phase's first batch (its rank's shard under a mesh); the
+    state, each step's launches, and the flattened gradients (averaged over
+    the group) that pair 0's steps took: D's at the R1 step, then G's."""
+    from s2v_torch.ops.kernels import launch_counts
+    from s2v_torch.train.gan import make_gan_trainer
+
+    g, d = gan_models(torch, 512, seed, channel_multiplier=2, narrow=1.0, style_dim=512, n_mlp=8)
+    batch, _ = train_batches(512, 8, 4, 1, seed=0)
+    rank, world = shard
+    batch = {k: torch.as_tensor(np.array_split(v, world)[rank]).cuda()
+             for k, v in batch[0].items()}
+    state, d_step, g_step = make_gan_trainer(g, d, d_reg_every=16, mesh=mesh)
+    steps, grads = [], []
+    for pair in range(GAN_DP_PAIRS):
+        for kind, fn, net in (("d_r1" if state.step % 16 == 0 else "d", d_step, "d"),
+                              ("g", g_step, "g")):
+            before = launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = fn(state, batch)
+            torch.cuda.synchronize()
+            after = launch_counts()
+            steps.append(dict(kind=kind, ms=(time.perf_counter() - t0) * 1e3,
+                              metrics={k: float(v) for k, v in m.items()},
+                              launches={k: after[k] - before[k] for k in after}))
+            if pair == 0:
+                grads.append(torch.cat([p.grad.reshape(-1) for p in getattr(state, net)
+                                        .parameters() if p.grad is not None]).cpu())
+    return state, steps, grads
+
+
+def rel_l2(got, want):
+    """Relative L2 distance of two lists of tensors, taken as one vector."""
+    num = sum(float((g.float() - w.float()).square().sum()) for g, w in zip(got, want))
+    return math.sqrt(num / sum(float(w.float().square().sum()) for w in want))
+
+
+def update_err(after, before, want):
+    """Relative L2 of the updates: parameters ``after`` against ``want``,
+    both moved from ``before`` (lists of tensors)."""
+    return rel_l2([a.float() - b.float() for a, b in zip(after, before)],
+                  [w.float() - b.float() for w, b in zip(want, before)])
+
+
+def gan_dp_gloo_rank(rank, world, work, out_path):
+    """A rank of the two-rank gloo group on the card: its half of the batch;
+    rank 0 saves the trained parameters. Then the same run with D's
+    minibatch-stddev channel taken over each rank's own half (a planted
+    fault: the check must see it), whose parameters rank 0 saves too."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT))
+    from s2v_torch.models import gpen
+    from s2v_torch.parallel.mesh import data_group, make_process_mesh, replicas_agree
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", store=dist.FileStore(str(Path(work) / "gloo_store"), world),
+                            rank=rank, world_size=world, timeout=datetime.timedelta(seconds=300))
+    try:
+        mesh = make_process_mesh(world, 1)
+        state, steps, grads = gan_dp_run(torch, mesh, (rank, world))
+        agree = replicas_agree(list(state.g.parameters()) + list(state.d.parameters())
+                               + list(state.g_ema.parameters()), data_group(mesh))
+        out = dict(g=[p.detach().cpu() for p in state.g.parameters()],
+                   d=[p.detach().cpu() for p in state.d.parameters()], grads=grads, steps=steps,
+                   agree=agree)
+        del state
+        whole_batch = gpen.minibatch_stddev
+        gpen.minibatch_stddev = lambda x, group=None: whole_batch(x, None)
+        try:
+            planted, _, planted_grads = gan_dp_run(torch, mesh, (rank, world))
+        finally:
+            gpen.minibatch_stddev = whole_batch
+        out["planted"] = {m: [p.detach().cpu() for p in getattr(planted, m).parameters()]
+                          for m in ("g", "d")}
+        out["planted"]["grads"] = planted_grads
+        if rank == 0:
+            torch.save(out, out_path)
+    finally:
+        dist.destroy_process_group()
+
+
+def gloo_cuda_refusal(torch, work):
+    """The collective gloo refuses on CUDA tensors in a two-rank group, or
+    None when it takes every one the trainers use (all-reduce sum, max and
+    min; all-gather; broadcast)."""
+    import torch.multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    procs = [ctx.Process(target=_gloo_probe_rank, args=(r, 2, str(work), q)) for r in range(2)]
+    for p in procs:
+        p.start()
+    try:
+        refused = [q.get(timeout=120) for _ in procs]
+    finally:
+        for p in procs:
+            p.join(30)
+            if p.is_alive():
+                p.kill()
+    return next((r for r in refused if r), None)
+
+
+def _gloo_probe_rank(rank, world, work, q):
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    dist.init_process_group("gloo", store=dist.FileStore(str(Path(work) / "probe_store"), world),
+                            rank=rank, world_size=world, timeout=datetime.timedelta(seconds=60))
+    x = torch.ones(4, device="cuda")
+    refused = None
+    for name, fn in (("all_reduce", lambda: dist.all_reduce(x.clone())),
+                     ("all_reduce MAX", lambda: dist.all_reduce(x.clone(), dist.ReduceOp.MAX)),
+                     ("all_gather", lambda: dist.all_gather(
+                         [torch.empty_like(x) for _ in range(world)], x)),
+                     ("broadcast", lambda: dist.broadcast(x.clone(), 0))):
+        try:
+            fn()
+        except Exception as e:  # the refusal is reported, not swallowed
+            refused = f"{name}: {type(e).__name__}: {str(e).splitlines()[0][:200]}"
+            break
+    dist.destroy_process_group()
+    q.put(refused)
+
+
+# relative L2 bounds of the data-parallel GPEN checks: pair 0's gradients
+# (R1's D step, then G's) and the parameters after both pairs. Sound runs
+# measured up to 1.1e-4 and 1.6e-5 (cuDNN's backward is not deterministic,
+# and G's step reads D after one Adam step), a rank-local minibatch stddev
+# 1.25e-2 and 5.0e-4 (D)
+GAN_DP_TOL = dict(grads=1e-3, params=1e-4)
+
+
+def gan_dp_errs(got, want):
+    """Relative L2 of pair 0's gradients (per step) and of the parameters
+    (G, D) of ``got`` against ``want`` (dicts with "grads", "g", "d")."""
+    return dict(grads=[rel_l2([a], [b]) for a, b in zip(got["grads"], want["grads"])],
+                params=[rel_l2(got[m], want[m]) for m in ("g", "d")])
+
+
+def gan_dp_within(errs):
+    return all(max(errs[k]) <= tol for k, tol in GAN_DP_TOL.items())
+
+
+def gan_dp_text(errs):
+    return (f"pair 0 gradients D (R1) {errs['grads'][0]:.2e}, G {errs['grads'][1]:.2e}; "
+            f"parameters G {errs['params'][0]:.2e}, D {errs['params'][1]:.2e} relative L2 "
+            f"(tol {GAN_DP_TOL})")
+
+
+def phase_gan_dp(torch, card, work):
+    """Data-parallel GPEN training on the card: ``make_gan_trainer(...,
+    mesh=make_process_mesh())`` on the one-rank NCCL group against the
+    trainer without a mesh from the same state and batch (pair 0's
+    gradients and the parameters after both pairs within ``GAN_DP_TOL``,
+    launches per step held to ``expected_train_launches``); then, when
+    gloo takes the trainer's collectives on CUDA tensors, two ranks sharing
+    the card over gloo (NCCL refuses two ranks on one device) split that
+    batch and must equal the one-rank run within ``GAN_DP_TOL``, while the
+    same two ranks with a rank-local minibatch stddev must land outside
+    it."""
+    import torch.multiprocessing as mp
+
+    from s2v_torch.ops.kernels import launch_counts, reset_launch_counts
+    from s2v_torch.parallel.mesh import make_process_mesh
+    from s2v_torch.train.gan import expected_train_launches
+
+    def params_of(state, grads):
+        return dict(grads=grads, **{m: [p.detach().cpu() for p in getattr(state, m).parameters()]
+                                    for m in ("g", "d")})
+
+    mesh = make_process_mesh(1, 1)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    state, steps, grads = gan_dp_run(torch, mesh)
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    want = expected_train_launches(state.g, state.d)
+    one = params_of(state, grads)
+    del state
+    plain, plain_steps, plain_grads = gan_dp_run(torch, None)
+    errs = gan_dp_errs(one, params_of(plain, plain_grads))
+    del plain
+    ok = gan_dp_within(errs) and all(st["launches"] == want[st["kind"]] for st in steps)
+    print(f"gan dp: one NCCL rank vs no mesh after {GAN_DP_PAIRS} step pairs: "
+          f"{gan_dp_text(errs)}; step ms {[round(s['ms'], 1) for s in steps]} (no mesh "
+          f"{[round(s['ms'], 1) for s in plain_steps]}); launches per step "
+          f"{[s['launches'] for s in steps]}, expected {want}; {wall:.1f} s; "
+          f"{'ok' if ok else 'FAIL'}; {card}")
+    if not ok:
+        fail(f"gan dp: one-rank mesh off the plain trainer ({errs}) or launches off")
+    report = dict(one_rank=dict(rel_l2=errs, steps=steps, plain_steps=plain_steps,
+                                wall_s=wall, expected=want, tol=GAN_DP_TOL))
+
+    refused = gloo_cuda_refusal(torch, work)
+    if refused is not None:
+        print(f"gan dp: gloo refused a collective on CUDA tensors: {refused}")
+        print("gan dp: the two-rank check stays in the CPU tests "
+              "(tests/test_torch_dist_train.py)")
+        report["two_ranks_gloo"] = dict(refused=refused)
+        return launches, report
+    out_path = work / "gan_dp_rank0.pt"
+    t0 = time.perf_counter()
+    mp.start_processes(gan_dp_gloo_rank, args=(2, str(work), str(out_path)), nprocs=2,
+                       join=True, start_method="spawn")
+    wall2 = time.perf_counter() - t0
+    two = torch.load(out_path)
+    errs2 = gan_dp_errs(two, one)
+    planted = gan_dp_errs(two["planted"], one)
+    ok = gan_dp_within(errs2) and two["agree"] and all(
+        st["launches"] == want[st["kind"]] for st in two["steps"])
+    seen = not gan_dp_within(planted)
+    print(f"gan dp: two gloo ranks on the card (batch 2 each) vs one NCCL rank (batch 4): "
+          f"{gan_dp_text(errs2)}; replicas bit-equal {two['agree']}; rank 0 step ms "
+          f"{[round(s['ms'], 1) for s in two['steps']]}; launches per step "
+          f"{[s['launches'] for s in two['steps']]}; {wall2:.1f} s with both processes' start "
+          f"and the planted run; {'ok' if ok else 'FAIL'}; {card}")
+    print(f"gan dp: planted rank-local minibatch stddev, two gloo ranks vs one NCCL rank: "
+          f"{gan_dp_text(planted)}; {'seen' if seen else 'NOT SEEN'}")
+    if not ok:
+        fail(f"gan dp: two gloo ranks off the one-rank run ({errs2}), replicas agree "
+             f"{two['agree']}, or launches off")
+    if not seen:
+        fail(f"gan dp: the check does not see a rank-local minibatch stddev ({planted})")
+    report["two_ranks_gloo"] = dict(rel_l2=errs2, planted_rel_l2=planted, agree=two["agree"],
+                                    steps=two["steps"], wall_s=wall2)
+    return launches, report
+
+
+ARC_CLASSES = 85742  # arcface_torch configs/ms1mv2_r50.py num_classes
+ARC_STEPS = 5
+# the slim card-vs-CPU check, in the setting of tests/test_torch_arcface.py's
+# well-conditioned optimizer test, whose planted optimizer faults land at
+# 2.7e-2 (backbone update) and 4.9e-4 (classifier update); the backbone's
+# bound is wider than the test's 2e-3 (cuDNN against the CPU's convs: its
+# early layers' f32 gradients measured 1.35e-3 at step 2)
+ARC_SLIM_LR, ARC_SLIM_WD = 1e-3, 0.5
+ARC_SLIM_TOL = dict(backbone_update=5e-3, clf_update=1e-4, state=1e-4)
+
+
+def phase_arcface(torch, card):
+    """``make_arcface_trainer`` at full width on the one-rank NCCL mesh:
+    IResNet-50, 512-d, 112^2, batch 128, 85,742 classes (arcface_torch's
+    configs/ms1mv2_r50.py), a new batch of random images and labels from a
+    seed each step, f32; 5 steps at sample_rate 1.0 and 5 from a fresh state
+    at 0.1. Then the slim
+    trainer on the card and on the CPU from the same state and batch: each
+    step's updates and the state within ``ARC_SLIM_TOL``."""
+    from s2v_torch.models.iresnet import IResNet
+    from s2v_torch.parallel.mesh import make_process_mesh
+    from s2v_torch.parallel.partial_fc import sample_classes, sampling_generator
+    from s2v_torch.train.arcface import make_arcface_trainer
+
+    mesh = make_process_mesh(1, 1)
+    g = torch.Generator().manual_seed(0)
+    batches = [(torch.rand(128, 112, 112, 3, generator=g).cuda(),
+                torch.randint(0, ARC_CLASSES, (128,), generator=g).cuda())
+               for _ in range(ARC_STEPS)]
+    report = {}
+    for rate in (1.0, 0.1):
+        torch.cuda.reset_peak_memory_stats()
+        state, step = make_arcface_trainer(ARC_CLASSES, mesh, 512, (3, 4, 14, 3), seed=0,
+                                           sample_rate=rate)
+        clf0 = state.clf_weight.detach().clone()
+        ms, losses = [], []
+        for images, labels in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, images, labels)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(m["loss"]))
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        changed = (state.clf_weight.detach() != clf0).any(1).cpu()
+        ok = all(math.isfinite(v) for v in losses)
+        extra = ""
+        if rate < 1.0:
+            num = int(rate * ARC_CLASSES)
+            picked = torch.zeros(ARC_CLASSES, dtype=torch.bool)
+            positives = torch.zeros(ARC_CLASSES, dtype=torch.bool)
+            for s, (_, labels) in enumerate(batches):
+                lab = labels.cpu()
+                idx, _ = sample_classes(lab, torch.ones_like(lab, dtype=torch.bool), ARC_CLASSES,
+                                        num, sampling_generator(0, s, 0))
+                picked[idx] = True
+                positives[lab] = True
+            untouched = int((~changed).sum())
+            ok = ok and not bool((changed & ~picked).any()) and bool(changed[positives].all()) \
+                and untouched >= ARC_CLASSES - ARC_STEPS * num
+            extra = (f"; {untouched} of {ARC_CLASSES} classifier rows untouched, every changed "
+                     f"row sampled in some step ({int(picked.sum())} sampled), every positive "
+                     "row changed")
+        steady = sum(ms[1:]) / (len(ms) - 1)
+        print(f"arcface r50: sample_rate {rate}: {steady:.1f} ms/step (steps 2-5; step 1 "
+              f"{ms[0]:.1f} ms), {128 / steady * 1e3:.0f} images/s, peak {peak:.2f} GiB, "
+              f"losses {[round(v, 3) for v in losses]}{extra}; {'ok' if ok else 'FAIL'}; {card}")
+        if not ok:
+            fail(f"arcface r50 at sample_rate {rate}: losses {losses} or classifier rows off")
+        report[f"rate_{rate}"] = dict(ms=ms, ms_per_step=steady, peak_gib=peak, losses=losses,
+                                      rows_changed=int(changed.sum()))
+        del state, step
+        torch.cuda.empty_cache()
+
+    # the slim trainer, card vs CPU, where its gradients are well conditioned
+    # (tests/test_torch_arcface.py test_decay_before_momentum_matches_jax)
+    rs = np.random.RandomState(3)
+    imgs, labs = rs.rand(8, 112, 112, 3).astype(np.float32), rs.randint(0, 16, 8)
+    out = {}
+    for name, dev, m in (("card", "cuda", mesh), ("cpu", "cpu", None)):
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(1)
+            backbone = IResNet((1, 1, 1, 1), 64)
+        state, step = make_arcface_trainer(16, m, 64, (1, 1, 1, 1), lr=ARC_SLIM_LR,
+                                           weight_decay=ARC_SLIM_WD, seed=1, device=dev,
+                                           backbone=backbone)
+        runs = [([p.detach().cpu().clone() for p in backbone.parameters()],
+                 state.clf_weight.detach().cpu().clone(),
+                 [t.detach().cpu().float().clone() for k, t in backbone.state_dict().items()
+                  if "num_batches" not in k])]
+        for _ in range(2):
+            state, metrics = step(state, imgs, labs)
+            runs.append(([p.detach().cpu().clone() for p in backbone.parameters()],
+                         state.clf_weight.detach().cpu().clone(),
+                         [t.detach().cpu().float().clone()
+                          for k, t in backbone.state_dict().items() if "num_batches" not in k]))
+        out[name] = (runs, float(metrics["loss"]))
+    (a, la), (b, lb) = out["card"], out["cpu"]
+    errs = []
+    for k in (1, 2):
+        errs.append(dict(
+            backbone_update=update_err(a[k][0], b[k - 1][0], b[k][0]),
+            clf_update=update_err([a[k][1]], [b[k - 1][1]], [b[k][1]]),
+            state=rel_l2(a[k][2], b[k][2])))
+    ok = all(e[key] <= tol for e in errs for key, tol in ARC_SLIM_TOL.items())
+    print(f"arcface slim: card (NCCL mesh) vs CPU, lr {ARC_SLIM_LR:g}, weight decay "
+          f"{ARC_SLIM_WD:g}, steps 1 and 2, relative L2: "
+          + "; ".join(", ".join(f"{key} {e[key]:.2e}" for key in ARC_SLIM_TOL) for e in errs)
+          + f" (tol {ARC_SLIM_TOL}), losses {la:.4f} / {lb:.4f}; {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"arcface slim card vs CPU: {errs}")
+    report["slim_card_vs_cpu"] = dict(errs=errs, tol=ARC_SLIM_TOL)
+    return report
 
 
 GFPGANER = dict(input_is_latent=True, different_w=True, sft_half=True)  # gfpgan/utils.py:63-74
@@ -2690,7 +3182,8 @@ def main():
     launches, report["slice"] = phase_slice(torch, card)
     torch.cuda.empty_cache()
     (cli_launches, report["cli"], (cmd_launches, report["train_cmd"]),
-     (opt_launches, report["infer_options"])) = phase_cli(torch, card)
+     (opt_launches, report["infer_options"]),
+     (mesh_launches, report["infer_mesh"])) = phase_cli(torch, card)
     torch.cuda.empty_cache()
     report["train_reference"] = phase_train_reference(torch)
     train_launches, report["train"] = phase_train(torch, card)
@@ -2698,9 +3191,29 @@ def main():
     report["finetune_reference"] = phase_finetune_reference(torch)
     report["gfpgan_reference"] = phase_gfpgan_reference(torch)
     gfpgan_launches, report["gfpgan_train"] = phase_gfpgan_train(torch, card)
+    torch.cuda.empty_cache()
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    work = Path(tempfile.mkdtemp(prefix="s2v_dist_"))
+    init_nccl(torch, work)
+    try:
+        t = time.perf_counter()
+        gan_dp_launches, report["gan_dp"] = phase_gan_dp(torch, card, work)
+        report["gan_dp"]["wall_s"] = time.perf_counter() - t
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        report["arcface"] = phase_arcface(torch, card)
+        report["arcface"]["wall_s"] = time.perf_counter() - t
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(work, ignore_errors=True)
     report["seconds"] = time.perf_counter() - t_start
     paths = dict(slice=launches, cli=cli_launches, infer_options=opt_launches,
-                 train=train_launches, train_cmd=cmd_launches, gfpgan_train=gfpgan_launches)
+                 infer_mesh=mesh_launches, train=train_launches, train_cmd=cmd_launches,
+                 gfpgan_train=gfpgan_launches, gan_dp=gan_dp_launches)
 
     def main_case(name, dtype):  # the first case at a main path's largest shape
         return next(c for c in cases if c["kernel"] == name and c["dtype"] == dtype)

@@ -9,9 +9,12 @@ futils/inference_utils.py:16-51).
         --checkpoint_dir checkpoints [--train.epochs 10 --train.batch_size 16]
 
 ``infer`` and ``train`` run on the card; ``main(argv, device="cpu")`` runs
-them on the CPU on purpose. Checkpoints are the reference's torch files, loaded as they are
-(``s2v_torch.utils.weights.load_reference``) into modules whose geometry is
-read from each file's state_dict:
+them on the CPU on purpose. ``infer --parallel.infer_mesh true`` splits the
+frames of every stage over a mesh of the cards (``--parallel.data_parallel``
+of them, all by default), or of ``--parallel.data_parallel`` replicas on
+the CPU under ``device="cpu"``. Checkpoints are the reference's torch
+files, loaded as they are (``s2v_torch.utils.weights.load_reference``) into
+modules whose geometry is read from each file's state_dict:
 
 - s3fd.pth (S3FD), 2DFAN4-cd938726ad.zip or 2DFAN4.pth (FAN, 4 modules),
   face3d_pretrain_epoch_20.pth (ReconNet, under ``net_recon``), DNet.pt
@@ -39,10 +42,12 @@ import numpy as np
 import torch
 
 
-def load_models(checkpoint_dir: str, cfg=None, device=None):
+def load_models(checkpoint_dir: str, cfg=None, device=None, mesh=None):
     """PipelineModels from a directory of reference checkpoints, with the
     file names, fallbacks and precedence of s2v_tpu's ``load_models``; the
-    modules live on ``device`` (the card unless ``"cpu"`` is asked for).
+    modules live on ``device`` (the card unless ``"cpu"`` is asked for), or
+    on the first device of ``mesh`` (a ``FrameMesh``), which the hooks then
+    split their frames over (pass the same mesh to ``LipSyncPipeline``).
     RetinaFace and ParseNet are one module each, shared by Step 5, the
     mouth tail and the final stage."""
     from s2v_torch.device import resolve_device
@@ -59,15 +64,14 @@ def load_models(checkpoint_dir: str, cfg=None, device=None):
     from s2v_torch.models.s3fd import S3FD
     from s2v_torch.pipeline.enhance import (FaceEnhancer, final_enhancer_hook,
                                             reference_enhancer_hook)
-    from s2v_torch.pipeline.inference import PipelineModels, refuse_unported
+    from s2v_torch.pipeline.inference import PipelineModels
     from s2v_torch.pipeline.restoration import make_mouth_restorer, make_up_face_editor
     from s2v_torch.utils.config import PipelineConfig
     from s2v_torch.utils.weights import (load_reference, load_torch_checkpoint,
                                          merge_enet_lnet)
 
     cfg = cfg if cfg is not None else PipelineConfig()
-    refuse_unported(cfg)
-    device = resolve_device(device)
+    device = mesh.first if mesh is not None else resolve_device(device)
 
     def maybe(path):
         full = os.path.join(checkpoint_dir, path)
@@ -128,7 +132,8 @@ def load_models(checkpoint_dir: str, cfg=None, device=None):
                               arch="original", input_is_latent=True, different_w=True,
                               sft_half=True)
     dtype, parse_size = cfg.model.dtype, cfg.model.parse_size
-    opts = dict(approx_warp=cfg.model.approx_warp, det_dtype=cfg.model.detector_dtype)
+    opts = dict(approx_warp=cfg.model.approx_warp, det_dtype=cfg.model.detector_dtype,
+                mesh=mesh)
     stack = "retinaface" in aux and "parsenet" in aux
     if maybe_weights("GPEN-BFR-512.pth") and stack:
         # Step 5 (inference.py:225-227,234-238; cli.py's ref_enhancer):
@@ -160,7 +165,7 @@ def load_models(checkpoint_dir: str, cfg=None, device=None):
         # --up_face (inference.py:250-253,267-281): the GANimation edit of
         # the upper face, composited through the --without_rl1 mask
         models.up_face_editor = make_up_face_editor({"ganimation": models.ganimation},
-                                                    cfg.infer.up_face, device=device)
+                                                    cfg.infer.up_face, device=device, mesh=mesh)
     return models
 
 
@@ -346,6 +351,23 @@ def train(cfg, device=None):
     return state
 
 
+def build_mesh(cfg, device=None):
+    """The ``infer`` mesh of config ``parallel`` (s2v_tpu's ``main``: all
+    devices, ``data_parallel x model_parallel``), None unless
+    ``parallel.infer_mesh``. On the cards by default; with a ``device`` (say
+    "cpu"), ``data_parallel`` (1 when -1) times ``model_parallel`` replicas
+    on it."""
+    from s2v_torch.parallel.mesh import make_mesh
+
+    par = cfg.parallel
+    if not par.infer_mesh:
+        return None
+    if device is None:
+        return make_mesh(par.data_parallel, par.model_parallel)
+    n = max(par.data_parallel, 1) * par.model_parallel
+    return make_mesh(par.data_parallel, par.model_parallel, devices=[device] * n)
+
+
 def main(argv=None, device=None):
     """``infer`` (the default command), ``train`` or ``find-audio``;
     ``device`` as ``load_models``'s. ``bench`` is not ported yet."""
@@ -355,8 +377,9 @@ def main(argv=None, device=None):
     if command == "infer":
         from s2v_torch.pipeline.inference import LipSyncPipeline
 
-        models = load_models(cfg.infer.checkpoint_dir, cfg, device=device)
-        pipe = LipSyncPipeline(cfg, models, device=device)
+        mesh = build_mesh(cfg, device)
+        models = load_models(cfg.infer.checkpoint_dir, cfg, device=device, mesh=mesh)
+        pipe = LipSyncPipeline(cfg, models, device=device, mesh=mesh)
         out = pipe.run(cfg.infer.face, cfg.infer.audio, cfg.infer.outfile)
         print("outfile:", out)
         return out

@@ -318,13 +318,34 @@ class FullGenerator(nn.Module):
         return self.generator(latent, noise)
 
 
+def minibatch_stddev(out: torch.Tensor, group=None) -> torch.Tensor:
+    """The population standard deviation of ``out`` [B, C, H, W] over the
+    batch, averaged over C*H*W. With a ``group``, over the batch of every
+    rank of the group: its sum and then its centred sum of squares are
+    all-reduced through ``torch.distributed.nn.functional.all_reduce``, whose
+    backward (an all-reduce) is itself differentiable, so R1's double
+    backward runs through it."""
+    if group is None:
+        return torch.sqrt(out.var(0, unbiased=False) + 1e-8).mean()
+    import torch.distributed as dist
+    from torch.distributed.nn.functional import all_reduce
+
+    n = out.shape[0] * dist.get_world_size(group)
+    mean = all_reduce(out.sum(0), group=group) / n
+    var = all_reduce((out - mean).square().sum(0), group=group) / n
+    return torch.sqrt(var + 1e-8).mean()
+
+
 class Discriminator(nn.Module):
     """gpen_model.py:692-750 as the JAX package computes it
     (s2v_tpu/models/gpen.py Discriminator): the minibatch-stddev channel is
     the population standard deviation over the whole batch, averaged over
-    C*H*W (the reference uses groups of 4). Key layout as the reference's
-    (``convs.N.conv1/conv2/skip``, ``final_conv``, ``final_linear.0/1``, Blur
-    ``kernel`` buffers), so a GPEN discriminator checkpoint loads as it is."""
+    C*H*W (the reference uses groups of 4). ``forward(x, group=...)`` takes
+    it over the whole batch split across a process group's ranks, as the
+    JAX program's global view does (``minibatch_stddev``). Key layout as the
+    reference's (``convs.N.conv1/conv2/skip``, ``final_conv``,
+    ``final_linear.0/1``, Blur ``kernel`` buffers), so a GPEN discriminator
+    checkpoint loads as it is."""
 
     def __init__(self, size=512, channel_multiplier=2, narrow=1.0):
         super().__init__()
@@ -340,10 +361,10 @@ class Discriminator(nn.Module):
             EqualLinear(ch[4] * 4 * 4, ch[4], activation="fused_lrelu"),
             EqualLinear(ch[4], 1))
 
-    def forward(self, x):
+    def forward(self, x, group=None):
         out = self.convs(x)
         b, _, h, w = out.shape
-        std = torch.sqrt(out.var(0, unbiased=False) + 1e-8).mean()
+        std = minibatch_stddev(out, group)
         out = torch.cat([out, std.expand(b, 1, h, w).to(out.dtype)], 1)
         return self.final_linear(self.final_conv(out).flatten(1))
 

@@ -10,7 +10,8 @@ third_part/face_detection/detection/sfd/net_s3fd.py + detect.py + bbox.py).
   (api.py:64-77 takes ``d[0]`` after score-ordered NMS: the global argmax),
   so it needs no NMS; ``nms_fixed`` is the fixed-size NMS of the multi-face
   API.
-- ``pad_and_smooth_boxes``: face_detect's pads, clip and 5-frame smoothing.
+- ``pad_and_smooth_boxes``: face_detect's pads, clip and 5-frame smoothing
+  (``s2v_torch.parallel.halo.smooth_boxes``).
 """
 
 from __future__ import annotations
@@ -22,6 +23,8 @@ import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from s2v_torch.parallel.halo import smooth_boxes
 
 # BGR means subtracted by the reference before detection (detect.py:59)
 BGR_MEAN = (104.0, 117.0, 123.0)
@@ -180,15 +183,3 @@ def pad_and_smooth_boxes(boxes: np.ndarray, image_hw: Tuple[int, int],
     if smooth:
         out = smooth_boxes(out, 5)
     return out
-
-
-def smooth_boxes(boxes: np.ndarray, window: int = 5) -> np.ndarray:
-    """inference_utils.py:101-108: forward-looking ``window``-frame mean,
-    recentred on the last frames near the tail, assigned in place into an
-    int array (later windows read smoothed rows; values truncate)."""
-    cur = np.array(boxes, np.int64)
-    n = len(cur)
-    for i in range(n):
-        win = cur[n - window:] if i + window > n else cur[i:i + window]
-        cur[i] = np.trunc(win.mean(axis=0))
-    return cur

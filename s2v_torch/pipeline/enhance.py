@@ -35,6 +35,7 @@ from s2v_torch.models.parsenet import parse_mask
 from s2v_torch.models.retinaface import RETINA_MEAN, detect_faces
 from s2v_torch.ops.image import frames_to_nchw, resize_bilinear
 from s2v_torch.ops.warp import affine_warp, affine_warp_shear
+from s2v_torch.parallel.mesh import map_frames, per_device_chunk, replica_on
 from s2v_torch.pipeline.utils import gaussian_blur, laplacian_pyramid_blend, mask_postprocess
 
 # align_faces.py:14-22
@@ -152,13 +153,17 @@ class FaceEnhancer:
     ``det_dtype`` is bfloat16 (config ``model.detector_dtype``; the decode
     stays f32); warps, masks and composites in f32. ``approx_warp`` (config
     ``model.approx_warp``) takes ``affine_warp_shear`` for the crop and
-    paste warps.
+    paste warps. ``mesh`` (a ``FrameMesh``) splits each chunk's frames over
+    its data axis, each slice on the modules' replica on its device; a chunk
+    then holds ``chunk`` frames per data device, so the 2048^2 stage's one
+    frame a device runs on every device too.
     """
 
     def __init__(self, models: dict, in_size: int = 512, threshold: float = 0.9,
                  dtype: str = "bfloat16", parse_size: int = 512, approx_warp: bool = False,
-                 det_dtype: str = "float32", device=None):
-        self.device = resolve_device(device)
+                 det_dtype: str = "float32", device=None, mesh=None):
+        self.mesh = mesh
+        self.device = mesh.first if mesh is not None else resolve_device(device)
         self.models = {k: m.to(self.device).eval() for k, m in models.items()
                        if m is not None}
         if "parsenet" not in self.models:
@@ -169,7 +174,7 @@ class FaceEnhancer:
         self.sr_scale = self.models["srmodel"].scale if self.use_sr else 1
         self.parse_size = int(parse_size)
         # 2048^2 crops are ~50 MB each in f32: small batches at that size
-        self.chunk = 1 if in_size >= 1024 else 16
+        self.chunk = per_device_chunk(1 if in_size >= 1024 else 16, mesh)
         self.reference_5pts = torch.from_numpy(
             get_reference_facial_points((in_size, in_size), 0.25, (0, 0), True)
         ).to(self.device)
@@ -181,17 +186,18 @@ class FaceEnhancer:
         return torch.autocast(self.device.type, dtype=torch.bfloat16,
                               enabled=self.amp)
 
-    def _model(self, name: str, why: str) -> torch.nn.Module:
+    def _model(self, name: str, x: torch.Tensor, why: str = "") -> torch.nn.Module:
+        """The model ``name`` (its replica on ``x``'s device)."""
         if name not in self.models:
             raise ValueError(f"FaceEnhancer needs a '{name}' model {why}")
-        return self.models[name]
+        return replica_on(self.models[name], x.device, self.mesh)
 
     @torch.no_grad()
     def _detect(self, x: torch.Tensor):
         """RetinaFace on frames [k, 3, H, W] RGB 0..255 (enhance.py
         detect_tfms): (landmarks [k, 5, 2], small [k], valid [k]); ``small``
         when the box's shorter side is under 100 px."""
-        retina = self._model("retinaface", "unless landmarks5 are supplied")
+        retina = self._model("retinaface", x, "unless landmarks5 are supplied")
         mean = torch.tensor(RETINA_MEAN, device=x.device).view(1, 3, 1, 1)
         with full_f32(), bf16_autocast(x.device, self.det_dtype):
             outs = retina(x.flip(1) - mean)
@@ -209,14 +215,14 @@ class FaceEnhancer:
         s, ps = self.in_size, self.parse_size
         ef = self.warp(x, tfms, (s, s))
         if face_enhance:
-            gan = self._model("facegan", "for face_enhance=True")
+            gan = self._model("facegan", x, "for face_enhance=True")
             with self._autocast():
                 ef = gan(ef / 255.0 * 2.0 - 1.0)
             ef = torch.clamp((ef.float() + 1.0) / 2.0, 0.0, 1.0) * 255.0
         # the mask is parsed from the unfiltered face (face_enhancement.py:145)
         efp = resize_bilinear(ef, (ps, ps))
         with self._autocast():
-            logits, _ = self.models["parsenet"](efp / 255.0 * 2.0 - 1.0)
+            logits, _ = self._model("parsenet", efp)(efp / 255.0 * 2.0 - 1.0)
         mask_sharp = parse_mask(logits.float(), FACE_MASK_COLORMAP)[:, None] / 255.0
         mask_sharp = resize_bilinear(mask_sharp, (512, 512))
         tmp_mask = resize_bilinear(mask_postprocess(mask_sharp, thres=26), (s, s))
@@ -255,7 +261,7 @@ class FaceEnhancer:
     @torch.no_grad()
     def _super_resolve(self, x: torch.Tensor) -> torch.Tensor:
         with self._autocast():
-            out = self.models["srmodel"](x / 255.0)
+            out = self._model("srmodel", x)(x / 255.0)
         return (torch.clamp(out.float(), 0.0, 1.0) * 255.0).to(torch.uint8).float()
 
     @torch.no_grad()
@@ -292,24 +298,30 @@ class FaceEnhancer:
         out = []
         for i in range(0, n, self.chunk):
             sl = slice(i, i + self.chunk)
-            c = x[sl]
-            if self.use_sr:
-                # SR the frame; locate and warp the face on the bilinear-2x
-                # frame (face_enhancement.py:103-106)
-                base = self._super_resolve(c)
-                c = _to_u8(resize_bilinear(c, base.shape[2:])).float()
-            else:
-                base = ori[sl]
-            if landmarks5 is None:
-                lms_c, small_c, valid_c = self._detect(c)
-            else:
-                lms_c, small_c, valid_c = lms[sl], small[sl], valid[sl]
-            tfms, _ = umeyama_similarity_batched(lms_c, self.reference_5pts)
-            faces = self._faces_and_masks(c, tfms, small_c, face_enhance)
-            mb = (_box_mask(np.asarray(bboxes)[sl], base.shape[2:], self.device)
+            mb = (_box_mask(np.asarray(bboxes)[sl], (h, w), self.device)
                   if mode == "possion" else None)
-            out.append(self._paste_composite(*faces, tfms, base, valid_c, mode, mb))
+            chunk = (x[sl], None if self.use_sr else ori[sl], mb) + (
+                (None, None, None) if landmarks5 is None else (lms[sl], small[sl], valid[sl]))
+            out.append(map_frames(
+                lambda *a: self._process_chunk(*a, mode=mode, face_enhance=face_enhance),
+                *chunk, mesh=self.mesh))
         return torch.cat(out).permute(0, 2, 3, 1)
+
+    def _process_chunk(self, c, ori, mb, lms, small, valid, mode: str, face_enhance: bool):
+        """One chunk's (or mesh slice's) frames [k, 3, H, W] on one device:
+        SR, detection unless ``lms`` are given, warp, GPEN, parse, paste."""
+        if self.use_sr:
+            # SR the frame; locate and warp the face on the bilinear-2x
+            # frame (face_enhancement.py:103-106)
+            base = self._super_resolve(c)
+            c = _to_u8(resize_bilinear(c, base.shape[2:])).float()
+        else:
+            base = ori
+        if lms is None:
+            lms, small, valid = self._detect(c)
+        tfms, _ = umeyama_similarity_batched(lms, self.reference_5pts.to(c.device))
+        faces = self._faces_and_masks(c, tfms, small, face_enhance)
+        return self._paste_composite(*faces, tfms, base, valid, mode, mb)
 
 
 def reference_enhancer_hook(enhancer: FaceEnhancer):

@@ -62,6 +62,7 @@ from s2v_torch.models.s3fd import BGR_MEAN, best_boxes, pad_and_smooth_boxes
 from s2v_torch.ops.image import frames_to_nchw, resize_bilinear
 from s2v_torch.ops.warp import (affine_warp, affine_warp_shear, crop_resize_boxes,
                                 paste_resize_boxes)
+from s2v_torch.parallel.mesh import map_frames, replica_on
 from s2v_torch.pipeline.align import (compute_transform, crop_quad_params, ffhq_crop_box,
                                       quad_from_cxy)
 from s2v_torch.pipeline.face3d_prep import align_img
@@ -75,16 +76,6 @@ _MODULES = ("s3fd", "fan", "recon", "dnet", "enet")
 # stage's cache key, so a bump invalidates the whole chain and the two
 # packages name the same artifacts alike.
 _CACHE_VERSION = 3
-
-
-def refuse_unported(cfg: PipelineConfig) -> None:
-    """Raise NotImplementedError for a setting of s2v_tpu's that the port
-    does not have yet, naming its ROADMAP queue: running on without it would
-    give another result than the JAX package's. Only the mesh is left."""
-    if cfg.parallel.infer_mesh:
-        raise NotImplementedError(
-            "s2v_torch does not port parallel.infer_mesh (frame sharding over a mesh) yet "
-            "(ROADMAP.md, queue 4)")
 
 
 @dataclass
@@ -156,16 +147,33 @@ def _host(x) -> np.ndarray:
 
 
 class LipSyncPipeline:
-    def __init__(self, cfg: PipelineConfig, models: PipelineModels, device=None):
+    """``mesh`` (a ``s2v_torch.parallel.mesh.FrameMesh``, config
+    ``parallel.infer_mesh``) splits the frame axis of every model stage's
+    chunk over its data axis: each slice runs on a replica of the module on
+    its device and the results are gathered on the first device, which is
+    the pipeline's ``device``. Frames are independent through every model,
+    so the output is the single-device run's. The two temporal stencils (the
+    5-frame box smoothing, the coefficient windows) run over the whole clip
+    on the first device before a stage splits its frames."""
+
+    def __init__(self, cfg: PipelineConfig, models: PipelineModels, device=None, mesh=None):
         self.cfg = cfg
         self.models = models
-        refuse_unported(cfg)
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = mesh.first if mesh is not None else resolve_device(device)
         for name in _MODULES:
             module = getattr(models, name)
             if module is not None:
                 module.to(self.device).eval()
         self.amp = cfg.model.dtype == "bfloat16" and self.device.type == "cuda"
+
+    def _on(self, module: torch.nn.Module, x: torch.Tensor) -> torch.nn.Module:
+        """``module``'s replica on ``x``'s device."""
+        return replica_on(module, x.device, self.mesh)
+
+    def _map(self, fn, *xs):
+        """``fn`` over the mesh's data axis (``map_frames``), or once."""
+        return map_frames(fn, *xs, mesh=self.mesh)
 
     def _require(self, *names: str) -> None:
         missing = [n for n in names if getattr(self.models, n) is None]
@@ -187,7 +195,7 @@ class LipSyncPipeline:
         """x [B, 3, H, W] RGB 0..255 -> (boxes [B, 4], valid [B])."""
         mean = torch.tensor(BGR_MEAN, device=x.device).view(1, 3, 1, 1)
         with self._det_autocast():
-            outs = self.models.s3fd(x.flip(1) - mean)
+            outs = self._on(self.models.s3fd, x)(x.flip(1) - mean)
         return best_boxes([(c.float(), r.float()) for c, r in outs])
 
     def _landmarks(self, x: torch.Tensor):
@@ -196,7 +204,7 @@ class LipSyncPipeline:
         centers, scales = box_to_center_scale(boxes)
         crops = crop_faces_batched(x, centers, scales)
         with self._det_autocast():
-            hm = self.models.fan(crops)
+            hm = self._on(self.models.fan, crops)(crops)
         return boxes, valid, heatmaps_to_landmarks(hm.float(), centers, scales)
 
     @torch.no_grad()
@@ -209,7 +217,7 @@ class LipSyncPipeline:
         while True:
             try:
                 with full_f32():
-                    res = [fn(frames_to_nchw(frames[i:i + batch], self.device))
+                    res = [self._map(fn, frames_to_nchw(frames[i:i + batch], self.device))
                            for i in range(0, n, batch)]
                 break
             except torch.cuda.OutOfMemoryError:
@@ -291,7 +299,8 @@ class LipSyncPipeline:
         with full_f32():
             for i in range(0, n, batch):
                 x = frames_to_nchw(aligned[i:i + batch], self.device) / 255.0
-                coeffs.append(self.models.recon(x).float().cpu().numpy())
+                coeffs.append(self._map(lambda c: self._on(self.models.recon, c)(c).float(),
+                                        x).cpu().numpy())
         return np.concatenate([np.concatenate(coeffs), trans_params], axis=1)
 
     # ------------------------------------------------------------------
@@ -334,13 +343,16 @@ class LipSyncPipeline:
         if one_shot:
             src = (np.repeat(src[:1], n, 0) if isinstance(src, np.ndarray)
                    else src[:1].expand(n, *src.shape[1:]))
+
+        def run(img, co):
+            with self._autocast():
+                fake = self._on(self.models.dnet, img)(img, co)["fake_image"]
+            return torch.clamp((fake.float() + 1.0) / 2.0 * 255.0, 0, 255).to(torch.uint8)
+
         out = []
         for i in range(0, n, batch):
             img = frames_to_nchw(src[i:i + batch], self.device) / 255.0 * 2.0 - 1.0
-            with self._autocast():
-                fake = self.models.dnet(img, coeff[i:i + batch])["fake_image"]
-            fake = torch.clamp((fake.float() + 1.0) / 2.0 * 255.0, 0, 255).to(torch.uint8)
-            out.append(fake.permute(0, 2, 3, 1))
+            out.append(self._map(run, img, coeff[i:i + batch]).permute(0, 2, 3, 1))
         out = torch.cat(out)
         return out if device_out else out.cpu().numpy()
 
@@ -407,19 +419,23 @@ class LipSyncPipeline:
                refs: torch.Tensor, mel: torch.Tensor) -> torch.Tensor:
         """crop + lower-half mask + ENet + paste for one batch. frames
         [B, 3, H, W] and refs [B, 3, img, img] float 0..255; mel
-        [B, 1, 80, 16]. Under ``infer.without_rl1`` the prediction is kept
+        [B, 1, 80, 16]; split over the mesh's data axis when there is one.
+        Under ``infer.without_rl1`` the prediction is kept
         only where the masked input is zero (the masked-out lower half, and
         any exact-0 subpixel of the upper half) and the original face, edited
         by the ``up_face_editor`` hook when there is one, is taken elsewhere
         (inference.py:269-286), before the paste. Returns [B, 3, H, W]
         uint8."""
+        return self._map(self._step6_slice, frames, boxes, refs, mel)
+
+    def _step6_slice(self, frames, boxes, refs, mel) -> torch.Tensor:
         img = self.cfg.model.img_size
         ofaces = crop_resize_boxes(frames, boxes, (img, img)) / 255.0
         masked = ofaces.clone()
         masked[:, :, img // 2:] = 0.0
         ref = refs / 255.0
         with self._autocast():
-            pred, _ = self.models.enet(mel, torch.cat([masked, ref], 1), ref)
+            pred, _ = self._on(self.models.enet, mel)(mel, torch.cat([masked, ref], 1), ref)
         pred = torch.clamp(pred.float(), 0.0, 1.0)
         if self.cfg.infer.without_rl1:
             editor = self.models.up_face_editor

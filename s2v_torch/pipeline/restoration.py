@@ -18,8 +18,9 @@ gives its image first.
 
 s2v_tpu's options: ``det_dtype`` (config ``model.detector_dtype``) runs
 the convs of RetinaFace and of the tail's ParseNet in bf16 (the decodes stay
-f32); ``approx_warp`` takes ``affine_warp_shear`` for both warps. Its
-``mesh`` is not ported (queue 4 of ROADMAP.md).
+f32); ``approx_warp`` takes ``affine_warp_shear`` for both warps; ``mesh``
+(a ``FrameMesh``) splits each chunk over its data axis, ``chunk`` frames per
+data device, each slice on the modules' replica on its device.
 
 ``make_mouth_restorer`` adds the mouth blend and returns the pipeline's
 ``mouth_restorer`` hook; ``make_up_face_editor`` the ``up_face_editor``
@@ -43,6 +44,7 @@ from s2v_torch.models.retinaface import RETINA_MEAN, detect_faces
 from s2v_torch.ops.image import frames_to_nchw, resize_bilinear
 from s2v_torch.ops.warp import (affine_warp, affine_warp_shear, crop_resize_boxes,
                                 paste_resize_boxes)
+from s2v_torch.parallel.mesh import map_frames, per_device_chunk, replica_on
 from s2v_torch.pipeline.enhance import _to_u8, umeyama_similarity_batched
 from s2v_torch.pipeline.utils import laplacian_pyramid_blend
 
@@ -80,18 +82,23 @@ class GFPGANRestorer:
     threshold = 0.9  # GFPGANer's face score threshold
 
     def __init__(self, models: dict, chunk: int = 16, dtype: str = "bfloat16",
-                 approx_warp: bool = False, det_dtype: str = "float32", device=None):
-        self.device = resolve_device(device)
+                 approx_warp: bool = False, det_dtype: str = "float32", device=None, mesh=None):
+        self.mesh = mesh
+        self.device = mesh.first if mesh is not None else resolve_device(device)
         self.models = {k: m.to(self.device).eval() for k, m in models.items() if m is not None}
         if "gfpgan" not in self.models:
             raise ValueError("GFPGANRestorer needs a 'gfpgan' model")
-        self.chunk = chunk
+        self.chunk = per_device_chunk(chunk, mesh)
         self.size = 2 ** self.models["gfpgan"].log_size
         self.template = torch.from_numpy(FACEXLIB_TEMPLATE_512 * (self.size / 512.0)).to(
             self.device)
         self.amp = dtype == "bfloat16" and self.device.type == "cuda"
         self.det_dtype = det_dtype
         self.warp = affine_warp_shear if approx_warp else affine_warp
+
+    def _model(self, name: str, x: torch.Tensor) -> torch.nn.Module:
+        """The model ``name`` (its replica on ``x``'s device)."""
+        return replica_on(self.models[name], x.device, self.mesh)
 
     @torch.no_grad()
     def _detect(self, x: torch.Tensor):
@@ -102,7 +109,7 @@ class GFPGANRestorer:
             raise ValueError("GFPGANRestorer needs a 'retinaface' model unless landmarks5 "
                              "are supplied")
         with full_f32(), bf16_autocast(x.device, self.det_dtype):
-            outs = self.models["retinaface"](x.flip(1) - _retina_mean_on(x.device))
+            outs = self._model("retinaface", x)(x.flip(1) - _retina_mean_on(x.device))
         return detect_faces(tuple(o.float() for o in outs), x.shape[2:], self.threshold)
 
     @torch.no_grad()
@@ -112,10 +119,10 @@ class GFPGANRestorer:
         template crop, restore it with GFPGAN and paste it back; frames not
         ``valid`` keep their pixels. Returns [k, 3, H, W] uint8."""
         s = self.size
-        tfms, _ = umeyama_similarity_batched(landms, self.template)  # frame -> crop
+        tfms, _ = umeyama_similarity_batched(landms, self.template.to(x.device))  # frame -> crop
         face = self.warp(x, tfms, (s, s))
         with torch.autocast(self.device.type, dtype=torch.bfloat16, enabled=self.amp):
-            out = self.models["gfpgan"]((face / 255.0 - 0.5) / 0.5)
+            out = self._model("gfpgan", face)((face / 255.0 - 0.5) / 0.5)
         if isinstance(out, tuple):  # GFPGANv1: (image, the U-Net's RGB heads)
             out = out[0]
         restored = torch.clamp((out.float() + 1.0) / 2.0, 0.0, 1.0) * 255.0
@@ -142,8 +149,8 @@ class GFPGANRestorer:
         3] uint8 on the device, in chunks of ``chunk``."""
         x = _to_u8(frames_to_nchw(frames, self.device)).float()
         lms = None if landmarks5 is None else _f32_on(landmarks5, self.device)
-        out = [self.restore(x[i:i + self.chunk],
-                            None if lms is None else lms[i:i + self.chunk])
+        out = [map_frames(self.restore, x[i:i + self.chunk],
+                          None if lms is None else lms[i:i + self.chunk], mesh=self.mesh)
                for i in range(0, len(x), self.chunk)]
         return torch.cat(out).permute(0, 2, 3, 1)
 
@@ -177,8 +184,9 @@ class MouthRestorer:
         ps = self.parse_size
         k, _, h, w = frames.shape
         crop = crop_resize_boxes(restored, boxes, (ps, ps))
+        parsenet = replica_on(self.parsenet, crop.device, self.restorer.mesh)
         with full_f32(), bf16_autocast(crop.device, self.restorer.det_dtype):
-            logits, _ = self.parsenet(crop / 255.0 * 2.0 - 1.0)
+            logits, _ = parsenet(crop / 255.0 * 2.0 - 1.0)
         mm = parse_mask(logits.float(), MOUTH_COLORMAP)[:, None] / 255.0
         mouth = paste_resize_boxes(frames.new_zeros(k, 1, h, w), mm, boxes)
         blended = laplacian_pyramid_blend(resize_bilinear(restored, (512, 512)),
@@ -198,15 +206,17 @@ class MouthRestorer:
         k = self.restorer.chunk
         out = []
         for i in range(0, len(x), k):
-            c = x[i:i + k]
-            restored = self.restorer.restore(c, None if lms is None else lms[i:i + k])
-            out.append(self._blend(restored.float(), c, bx[i:i + k]))
+            out.append(map_frames(
+                lambda c, lm, b: self._blend(self.restorer.restore(c, lm).float(), c, b),
+                x[i:i + k], None if lms is None else lms[i:i + k], bx[i:i + k],
+                mesh=self.restorer.mesh))
         return torch.cat(out).permute(0, 2, 3, 1)
 
 
 def make_mouth_restorer(models: dict, chunk: int = 16, parse_size: int = 512,
                         dtype: str = "bfloat16", approx_warp: bool = False,
-                        det_dtype: str = "float32", device=None) -> Optional[MouthRestorer]:
+                        det_dtype: str = "float32", device=None,
+                        mesh=None) -> Optional[MouthRestorer]:
     """The reference's Step-6 tail (inference.py:299-312). models needs
     'retinaface', 'gfpgan' (GFPGANv1Clean or GFPGANv1) and 'parsenet';
     returns None unless all three are given (as s2v_tpu's cli builds the
@@ -216,29 +226,32 @@ def make_mouth_restorer(models: dict, chunk: int = 16, parse_size: int = 512,
         return None
     restorer = GFPGANRestorer({k: models[k] for k in ("retinaface", "gfpgan")}, chunk=chunk,
                               dtype=dtype, approx_warp=approx_warp, det_dtype=det_dtype,
-                              device=device)
+                              device=device, mesh=mesh)
     return MouthRestorer(restorer, models["parsenet"], parse_size)
 
 
-def make_up_face_editor(models: dict, up_face: str, device=None) -> Optional[Callable]:
+def make_up_face_editor(models: dict, up_face: str, device=None,
+                        mesh=None) -> Optional[Callable]:
     """The GANimation hook of ``--up_face`` (inference.py:269-281; s2v_tpu's
     ``make_up_face_editor``): None for ``original`` or without a
     'ganimation' SplitGenerator. The hook takes the original face crops
     [B, 3, S, S] in 0..1 on the device (S is 384 in the pipeline), resizes
     them bilinearly to 128^2 in [-1, 1], runs the SplitGenerator with the
     ``EXP_AUS`` row of ``up_face`` (full f32), composites with its
-    attention mask and resizes back to S^2, clipped to [0, 1]."""
+    attention mask and resizes back to S^2, clipped to [0, 1]. The faces may
+    lie on any device of ``mesh`` (a ``FrameMesh``)."""
     if up_face == "original" or models.get("ganimation") is None:
         return None
-    dev = resolve_device(device)
+    dev = mesh.first if mesh is not None else resolve_device(device)
     gen = models["ganimation"].to(dev).eval()
     aus = torch.tensor(EXP_AUS[up_face], dtype=torch.float32, device=dev)[None]
 
     @torch.no_grad()
     def hook(faces01: torch.Tensor) -> torch.Tensor:
         small = resize_bilinear(faces01 * 2.0 - 1.0, (128, 128))
+        g = replica_on(gen, small.device, mesh)
         with full_f32():
-            color, att, _ = gen(small, aus.expand(len(small), -1))
+            color, att, _ = g(small, aus.to(small.device).expand(len(small), -1))
         fake = apply_expression(small, color, att)
         return torch.clamp(resize_bilinear(fake / 2.0 + 0.5, faces01.shape[2:]), 0.0, 1.0)
 

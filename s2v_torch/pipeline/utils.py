@@ -2,8 +2,8 @@
 
 - 3DMM coefficient windows (inference_utils.py:73-99): ``split_coeff``,
   ``transform_semantic`` (DNet's driving input for every frame at once,
-  over edge-clamped windows: ``gather_windows``) and
-  ``find_crop_norm_ratio``.
+  over edge-clamped windows: ``s2v_torch.parallel.halo.gather_windows``)
+  and ``find_crop_norm_ratio``.
 - OpenCV-convention mask helpers of GPEN's enhancer (inference_utils.py:
   59-64), NCHW: ``gaussian_blur`` is cv2.GaussianBlur(ksize, sigma) with a
   REFLECT_101 border, run as two banded-matrix matmuls (the border folded
@@ -27,26 +27,13 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from s2v_torch.parallel.halo import gather_windows
+
 
 def split_coeff(coeffs: torch.Tensor) -> Dict[str, torch.Tensor]:
     """[B, 257] ReconNet output -> named groups (inference_utils.py:158-179)."""
     return {"id": coeffs[:, :80], "exp": coeffs[:, 80:144], "tex": coeffs[:, 144:224],
             "angle": coeffs[:, 224:227], "gamma": coeffs[:, 227:254], "trans": coeffs[:, 254:]}
-
-
-def window_offsets(window: int) -> np.ndarray:
-    """Frame offsets of a temporal window: obtain_seq_index
-    (inference_utils.py:73-76) is ``range(i - 13, i + 13)``, offsets
-    ``arange(window) - window // 2``."""
-    return np.arange(window) - window // 2
-
-
-def gather_windows(x: torch.Tensor, window: int) -> torch.Tensor:
-    """[N, ...] -> [N, window, ...], indices clamped to [0, N - 1] as
-    obtain_seq_index clips them."""
-    n = x.shape[0]
-    idx = np.clip(np.arange(n)[:, None] + window_offsets(window)[None], 0, n - 1)
-    return x[torch.as_tensor(idx, device=x.device)]
 
 
 def transform_semantic(semantic: torch.Tensor, crop_norm_ratio: Optional[torch.Tensor] = None,

@@ -4,8 +4,12 @@ finetune.py), on one card.
 The reference fine-tunes on one video with Adam, freezing everything but
 ENet's style convs (ENet.set_training_style, ENet.py:141-153). Here the
 frozen parameters have ``requires_grad`` off: they take no gradient and no
-update, as under the JAX package's ``optax.set_to_zero``. The JAX step's
-mesh (data-parallel over a device mesh) is multi-card work, not ported yet.
+update, as under the JAX package's ``optax.set_to_zero``. With a ``mesh``
+(a ``DeviceMesh`` of ``s2v_torch.parallel.mesh.make_process_mesh``) the step
+is data-parallel: each rank feeds its shard of the batch, the gradients are
+averaged over the data group before the optimizer steps, and the metrics
+are the group's means, which is the global-batch step of the JAX step's
+mesh.
 """
 
 from __future__ import annotations
@@ -16,6 +20,7 @@ from typing import Callable, Dict, Optional
 import torch
 import torch.nn as nn
 
+from s2v_torch.parallel.mesh import allreduce_grads, allreduce_mean, data_group
 from s2v_torch.train.losses import l1_loss, perceptual_stub
 
 
@@ -55,27 +60,31 @@ def init_state(module: nn.Module, opt: torch.optim.Optimizer) -> TrainState:
     return TrainState(module=module, opt=opt, step=0)
 
 
-def apply_loss(state: TrainState, loss: torch.Tensor) -> None:
-    """One optimizer step on ``loss``'s gradient; ``step`` advances."""
+def apply_loss(state: TrainState, loss: torch.Tensor, group=None) -> None:
+    """One optimizer step on ``loss``'s gradient, averaged over ``group``
+    when given; ``step`` advances."""
     state.opt.zero_grad(set_to_none=True)
     loss.backward()
+    allreduce_grads(state.module.parameters(), group)
     state.opt.step()
     state.step += 1
 
 
 def make_train_step(apply_fn: Callable, l1_weight: float = 1.0,
-                    perceptual_weight: float = 0.01) -> Callable:
+                    perceptual_weight: float = 0.01, mesh=None) -> Callable:
     """(state, batch) -> (state, metrics) with L1 plus the pyramid
     perceptual stand-in. ``apply_fn(module, batch)`` returns the predicted
-    frames; ``batch`` has at least ``target``, on the module's device."""
+    frames; ``batch`` has at least ``target``, on the module's device (this
+    rank's shard under a ``mesh``)."""
+    group = data_group(mesh)
 
     def step(state: TrainState, batch) -> tuple:
         pred = apply_fn(state.module, batch)
         loss_l1 = l1_loss(pred, batch["target"])
         loss_p = perceptual_stub(pred, batch["target"])
         loss = l1_weight * loss_l1 + perceptual_weight * loss_p
-        apply_loss(state, loss)
-        return state, {"loss": loss.detach(), "l1": loss_l1.detach(),
-                       "perceptual": loss_p.detach()}
+        apply_loss(state, loss, group)
+        return state, allreduce_mean({"loss": loss.detach(), "l1": loss_l1.detach(),
+                                      "perceptual": loss_p.detach()}, group)
 
     return step

@@ -8,7 +8,10 @@ The batches come from the inference pipeline's preprocessing
 while its style convs learn: its BatchNorms use and keep their running
 statistics, as the JAX step applies ENet with frozen ``batch_stats``. The
 step runs in full f32 without TF32, as the GPEN trainer does, and outside
-the pipeline's bf16 autocast and ``no_grad`` methods.
+the pipeline's bf16 autocast and ``no_grad`` methods. With a ``mesh`` it is
+data-parallel (``s2v_torch.train.finetune``): each rank takes its shard of
+every batch and the gradients are averaged over the data group; with no
+batch statistics in play, that is the global-batch step.
 """
 
 from __future__ import annotations
@@ -21,6 +24,8 @@ import torch.nn as nn
 
 from s2v_torch.device import full_f32, resolve_device
 from s2v_torch.ops.image import resize_bilinear
+from s2v_torch.parallel.hosts import is_leader
+from s2v_torch.parallel.mesh import allreduce_mean, data_group, group_size
 from s2v_torch.train.finetune import (TrainState, apply_loss, init_state, make_optimizer,
                                       style_conv_mask)
 from s2v_torch.train.losses import identity_loss, l1_loss, perceptual_stub
@@ -44,7 +49,7 @@ def make_id_embed_fn(recon: nn.Module) -> Callable:
 
 def make_enet_finetune_step(enet: nn.Module, cfg, device=None,
                             id_embed_fn: Optional[Callable] = None,
-                            vgg: Optional[nn.Module] = None):
+                            vgg: Optional[nn.Module] = None, mesh=None):
     """Returns ``(state, step_fn)``; ``step_fn(state, batch) -> (state,
     metrics)`` with the JAX step's metric keys (0-dim tensors on the
     device). ``cfg`` is a ``TrainConfig``. Batches: dict(mel [B, 80, 16, 1],
@@ -54,10 +59,12 @@ def make_enet_finetune_step(enet: nn.Module, cfg, device=None,
     term is the VGG16 one (``s2v_torch.models.vgg``) when ``vgg`` is given,
     else the pyramid stand-in; ``id_embed_fn`` adds the identity term.
     ``device`` defaults to the card and raises without one; pass ``"cpu"``
-    to train on the CPU on purpose."""
+    to train on the CPU on purpose. With a ``mesh`` the batches are this
+    rank's shards."""
     from s2v_torch.models.vgg import vgg_perceptual_loss
 
     dev = resolve_device(device)
+    group = data_group(mesh)
     enet = enet.to(dev).eval()
     state = init_state(enet, make_optimizer(cfg.lr, enet, style_conv_mask))
     if vgg is not None:
@@ -80,35 +87,41 @@ def make_enet_finetune_step(enet: nn.Module, cfg, device=None,
                 loss = loss + cfg.id_weight * loss_id
                 metrics["id"] = loss_id.detach()
             metrics["loss"] = loss.detach()
-            apply_loss(state, loss)
-        return state, metrics
+            apply_loss(state, loss, group)
+        return state, allreduce_mean(metrics, group)
 
     return state, step
 
 
 def finetune(enet: nn.Module, batches: Iterable[Dict[str, np.ndarray]], cfg, device=None,
              checkpoint_dir: Optional[str] = None, log_path: Optional[str] = None,
-             id_embed_fn: Optional[Callable] = None, vgg: Optional[nn.Module] = None
-             ) -> TrainState:
+             id_embed_fn: Optional[Callable] = None, vgg: Optional[nn.Module] = None,
+             mesh=None) -> TrainState:
     """The training.py epoch loop (training.py:436-471): ``cfg.epochs``
     passes over ``batches`` (moved to the device once), a JSON log line
     every 10 steps and at the last (s2v_tpu's logs no last line, so a run
     of fewer than 10 steps leaves no log there), and a checkpoint every ``cfg.checkpoint_every`` epochs
-    when ``checkpoint_dir`` is given."""
+    when ``checkpoint_dir`` is given. With a ``mesh`` every rank takes its
+    shard of each batch (each batch's size divides the data axis); the log
+    line counts the global batch, and only the leader logs and checkpoints."""
     from s2v_torch.utils.checkpoint import TrainCheckpointer
     from s2v_torch.utils.diagnostics import ThroughputLogger
 
     state, step_fn = make_enet_finetune_step(enet, cfg, device, id_embed_fn=id_embed_fn,
-                                             vgg=vgg)
+                                             vgg=vgg, mesh=mesh)
     dev = next(enet.parameters()).device
-    batches = [{k: torch.as_tensor(b[k], device=dev) for k in BATCH_KEYS}
+    group = data_group(mesh)
+    n_ranks, rank = group_size(group), 0 if group is None else torch.distributed.get_rank(group)
+    batches = [{k: torch.as_tensor(b[k], device=dev).chunk(n_ranks)[rank] for k in BATCH_KEYS}
                for b in batches]
-    logger = ThroughputLogger(log_path, every=10)
-    ckptr = TrainCheckpointer(checkpoint_dir) if checkpoint_dir is not None else None
+    leader = is_leader()  # one log and one checkpoint for the whole group
+    logger = ThroughputLogger(log_path if leader else None, every=10)
+    ckptr = (TrainCheckpointer(checkpoint_dir) if checkpoint_dir is not None and leader
+             else None)
     for epoch in range(cfg.epochs):
         for i, batch in enumerate(batches):
             state, metrics = step_fn(state, batch)
-            logger.step(state.step, batch["mel"].shape[0],
+            logger.step(state.step, batch["mel"].shape[0] * n_ranks,
                         {k: float(v) for k, v in metrics.items()},
                         force=epoch == cfg.epochs - 1 and i == len(batches) - 1)
         if ckptr is not None and (epoch + 1) % cfg.checkpoint_every == 0:

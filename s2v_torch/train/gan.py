@@ -14,6 +14,17 @@ R1 differentiates D's input gradient again, so every kernel on D's path
 ``dict(lq, hq)`` of ``[B, H, W, 3]`` images in [-1, 1] (numpy or tensors),
 the layout ``s2v_torch.prep.degradations.face_batches`` yields and the JAX
 trainer takes; the steps move them to the device as NCHW.
+
+Data parallel (``mesh``, a ``DeviceMesh`` of ``make_process_mesh``): each
+rank feeds its shard of the batch and the steps compute the global-batch
+step of the JAX trainer's sharded program. D's minibatch-stddev channel
+takes the whole batch (``s2v_torch.models.gpen.minibatch_stddev`` over the
+data group); R1 differentiates D's output through that collective and then
+differentiates again; after each backward the flattened gradients are
+averaged over the group by hand (``allreduce_grads``) instead of wrapping G
+and D in ``DistributedDataParallel``. The metrics are the group's means.
+The EMA and the Adam state stay replicated: the same averaged gradients
+step the same states on every rank (``replicas_agree`` checks it).
 """
 
 from __future__ import annotations
@@ -29,6 +40,7 @@ import torch.nn.functional as F
 
 from s2v_torch.device import resolve_device
 from s2v_torch.models.gpen import Blur, EqualLinear, FusedLeakyReLU, Upsample
+from s2v_torch.parallel.mesh import allreduce_grads, allreduce_mean, data_group
 
 
 def d_logistic_loss(real_pred: torch.Tensor, fake_pred: torch.Tensor) -> torch.Tensor:
@@ -44,9 +56,9 @@ def smooth_l1(a: torch.Tensor, b: torch.Tensor, beta: float = 1.0) -> torch.Tens
     return torch.where(d < beta, 0.5 * d * d / beta, d - 0.5 * beta).mean()
 
 
-def r1_penalty(disc: nn.Module, real: torch.Tensor) -> torch.Tensor:
+def r1_penalty(disc: Callable, real: torch.Tensor) -> torch.Tensor:
     """d_r1_loss (train_simple.py:76-82): the batch mean of ||dD(x)/dx||^2,
-    kept differentiable in D's parameters."""
+    kept differentiable in D's parameters (``disc``: D, or D over a group)."""
     real = real.detach().requires_grad_(True)
     (grad,) = torch.autograd.grad(disc(real).sum(), real, create_graph=True)
     return grad.square().reshape(grad.shape[0], -1).sum(1).mean()
@@ -95,14 +107,17 @@ def make_gan_trainer(
     id_weight: float = 1.0,
     id_embed_fn: Optional[Callable] = None,  # images [B, 3, H, W] -> [B, E]
     ema_kimg: float = 10.0,
+    mesh=None,
 ):
     """Returns ``(state, d_step, g_step)``; each step takes ``(state,
     batch)`` and returns ``(state, metrics)`` with the JAX trainer's metric
     keys (0-dim tensors on the device). ``device`` defaults to the card and
     raises without one; pass ``"cpu"`` to train on the CPU on purpose.
     ``step`` advances in ``g_step`` only; R1 runs in the ``d_step`` taken
-    when ``step % d_reg_every == 0``."""
+    when ``step % d_reg_every == 0``. With a ``mesh`` the batches are this
+    rank's shards of the global batch."""
     dev = resolve_device(device)
+    group = data_group(mesh)
     g, d = g.to(dev).train(), d.to(dev).train()
     g_ema = copy.deepcopy(g).eval().requires_grad_(False)
     state = GANState(
@@ -114,27 +129,31 @@ def make_gan_trainer(
     def images(batch, key):
         return torch.as_tensor(batch[key], device=dev).permute(0, 3, 1, 2).contiguous()
 
+    def disc(x):
+        return state.d(x, group=group)
+
     def d_step(state: GANState, batch) -> tuple:
         lq, hq = images(batch, "lq"), images(batch, "hq")
         with torch.no_grad():
             fake = state.g(lq)
-        loss = d_logistic_loss(state.d(hq), state.d(fake))
+        loss = d_logistic_loss(disc(hq), disc(fake))
         if state.step % d_reg_every == 0:
-            r1 = r1_penalty(state.d, hq)
+            r1 = r1_penalty(disc, hq)
             # lazy regularization (train_simple.py:197-203)
             loss = loss + (r1_weight / 2.0) * r1 * d_reg_every
         else:
             r1 = torch.zeros((), device=dev)
         state.d_opt.zero_grad(set_to_none=True)
         loss.backward()
+        allreduce_grads(state.d.parameters(), group)
         state.d_opt.step()
-        return state, {"d_loss": loss.detach(), "r1": r1.detach()}
+        return state, allreduce_mean({"d_loss": loss.detach(), "r1": r1.detach()}, group)
 
     def g_step(state: GANState, batch) -> tuple:
         lq, hq = images(batch, "lq"), images(batch, "hq")
         with _frozen(state.d):
             fake = state.g(lq)
-            loss = g_nonsaturating_loss(state.d(fake))
+            loss = g_nonsaturating_loss(disc(fake))
             loss_l1 = smooth_l1(fake, hq)
             loss = loss + l1_weight * loss_l1
             # g_adv holds the adversarial loss plus the weighted L1, as the
@@ -151,10 +170,11 @@ def make_gan_trainer(
             metrics["g_loss"] = loss.detach()
             state.g_opt.zero_grad(set_to_none=True)
             loss.backward()
+        allreduce_grads(state.g.parameters(), group)
         state.g_opt.step()
         ema_update(state.g_ema, state.g, ema_decay)
         state.step += 1
-        return state, metrics
+        return state, allreduce_mean(metrics, group)
 
     return state, d_step, g_step
 

@@ -87,9 +87,8 @@ class ParallelConfig:
     model_axis: str = "model"
     data_parallel: int = -1      # -1: all devices
     model_parallel: int = 1
-    # s2v_tpu's frame-sharded inference over a device mesh; the port runs
-    # on one card and raises NotImplementedError when this is set (ROADMAP
-    # queue 4).
+    # frame-sharded inference: every stage's chunks split over the mesh's
+    # data axis (s2v_torch.cli.build_mesh)
     infer_mesh: bool = False
 
 

@@ -647,3 +647,62 @@ def gfpgan_v1_from_jax(variables) -> StateDict:
         res = 2 ** ((j + 5) // 2)
         sd[f"{pre}.noises.noise{j}"] = torch.zeros(1, 1, res, res)
     return sd
+
+
+def iresnet_from_jax(variables) -> StateDict:
+    """s2v_tpu IResNet variables -> arcface_torch's iresnet key names
+    (``layerS.B.{bn1,conv1,bn2,prelu,conv2,bn3,downsample.0/1}``, ``fc``, the
+    feature BatchNorm1d ``features``)."""
+    p, s = variables["params"], variables["batch_stats"]
+    sd: StateDict = {}
+    _conv(p["conv1"], "conv1", sd)
+    _bn(p["bn1"], s["bn1"], "bn1", sd)
+    sd["prelu.weight"] = _t(p["prelu"]["alpha"])
+    for name in sorted((k for k in p if k.startswith("layer")),
+                       key=lambda k: tuple(int(v) for v in k[5:].split("_"))):
+        stage, b = name[5:].split("_")
+        blk, bs, pre = p[name], s[name], f"layer{stage}.{b}"
+        for bn in ("bn1", "bn2", "bn3"):
+            _bn(blk[bn], bs[bn], f"{pre}.{bn}", sd)
+        _conv(blk["conv1"], f"{pre}.conv1", sd)
+        _conv(blk["conv2"], f"{pre}.conv2", sd)
+        sd[f"{pre}.prelu.weight"] = _t(blk["prelu"]["alpha"])
+        if "downsample_conv" in blk:
+            _conv(blk["downsample_conv"], f"{pre}.downsample.0", sd)
+            _bn(blk["downsample_bn"], bs["downsample_bn"], f"{pre}.downsample.1", sd)
+    _bn(p["bn2"], s["bn2"], "bn2", sd)
+    _linear(p["fc"], "fc", sd)
+    _bn({"weight": p["features_weight"], "bias": p["features_bias"]},
+        {"running_mean": s["features_mean"], "running_var": s["features_var"]}, "features", sd)
+    return sd
+
+
+def mobilefacenet_from_jax(variables) -> StateDict:
+    """s2v_tpu MobileFaceNet variables -> arcface_torch's mobilefacenet key
+    names (``layers.N`` blocks of ``layers`` Sequentials, ``conv_sep``, the
+    GDC head ``features.layers.{0,2,3}``)."""
+    p, s = variables["params"], variables["batch_stats"]
+    sd: StateDict = {}
+
+    def block(pp, ss, pre, prelu=True):  # ConvBlock / LinearBlock
+        _conv(pp["conv"], f"{pre}.layers.0", sd)
+        _bn(pp["bn"], ss["bn"], f"{pre}.layers.1", sd)
+        if prelu:
+            sd[f"{pre}.layers.2.weight"] = _t(pp["prelu"]["alpha"])
+
+    def depthwise(name, pre):
+        for i, part in enumerate(("pw", "dw", "proj")):
+            block(p[name][part], s[name][part], f"{pre}.layers.{i}", prelu=part != "proj")
+
+    block(p["l0"], s["l0"], "layers.0")
+    block(p["l1"], s["l1"], "layers.1")
+    for idx, name, n in ((3, "l3", 4), (5, "l5", 6), (7, "l7", 2)):
+        depthwise(f"l{idx - 1}", f"layers.{idx - 1}")
+        for j in range(n):
+            depthwise(f"{name}_{j}", f"layers.{idx}.layers.{j}")
+    block(p["conv_sep"], s["conv_sep"], "conv_sep")
+    block(p["gdc_dw"], s["gdc_dw"], "features.layers.0", prelu=False)
+    _linear({"weight": p["gdc_weight"]}, "features.layers.2", sd)
+    _bn({"weight": p["head_weight"], "bias": p["head_bias"]},
+        {"running_mean": s["head_mean"], "running_var": s["head_var"]}, "features.layers.3", sd)
+    return sd

@@ -15,9 +15,9 @@ converters fix (LNet's 9 decoder blocks, ParseNet's 10, RRDBNet's 23, the
   the same files; the hooks exist exactly where s2v_tpu's do, for several
   subsets of the files and with the ``weights/`` subfolder; RetinaFace and
   ParseNet are one module each.
-- ``parallel.infer_mesh``, the one setting the port does not have yet,
-  raises NotImplementedError; every other setting of s2v_tpu's ``infer``
-  loads and reaches the modules that run it, and a directory whose only
+- every setting of s2v_tpu's ``infer`` loads and reaches the modules that
+  run it (``parallel.infer_mesh`` with two CPU replicas: the pipeline and
+  its hooks on one ``FrameMesh``), and a directory whose only
   GFPGAN is a GFPGANv1.pth (the original arch, slim at out_size 512: the
   depth ``convert_gfpgan_v1`` fixes) or that holds a GANimation file
   loads them as s2v_tpu's ``load_models`` does (the same trees).
@@ -240,18 +240,28 @@ def test_gfpgan_v13_is_taken_when_v14_is_absent(ckpt, tmp_path):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--parallel.infer_mesh", "true"], ["--model.approx_warp", "true"],
+    ["--parallel.infer_mesh", "true", "--parallel.data_parallel", "2"],
+    ["--model.approx_warp", "true"],
     ["--model.detector_dtype", "bfloat16"], ["--box", "0", "64", "0", "64"],
     ["--cropped_image"], ["--without_rl1"]])
 def test_unported_settings_raise(ckpt, tmp_path, flags):
-    """Only the mesh is refused, by load_models and the pipeline alike;
-    the other settings load from the files and reach what runs them."""
+    """No setting is refused any more: each loads from the files and
+    reaches what runs it. The mesh: two CPU replicas, held by the pipeline
+    and every hook, whose chunks then take two frames per replica."""
     cfg = t_cli.parse_args(flags)
     if flags[0] == "--parallel.infer_mesh":
-        with pytest.raises(NotImplementedError, match="ROADMAP.md, queue 4"):
-            t_cli.load_models(str(tmp_path), cfg, device="cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP.md, queue 4"):
-            t_inf.LipSyncPipeline(cfg, t_inf.PipelineModels(), device="cpu")
+        mesh = t_cli.build_mesh(cfg, "cpu")
+        assert mesh.shape == {"data": 2, "model": 1}
+        assert [d.type for d in mesh.data_devices] == ["cpu", "cpu"]
+        models = t_cli.load_models(subset(ckpt, tmp_path, only=STACK), cfg, device="cpu",
+                                   mesh=mesh)
+        pipe = t_inf.LipSyncPipeline(cfg, models, device="cpu", mesh=mesh)
+        assert pipe.mesh is mesh and pipe.device == torch.device("cpu")
+        step5, final = models.ref_enhancer.enhancer, models.final_enhancer.enhancer
+        restorer = models.mouth_restorer.restorer
+        assert all(e.mesh is mesh for e in (step5, final, restorer))
+        assert (step5.chunk, final.chunk, restorer.chunk) == (32, 2, 32)
+        assert t_cli.build_mesh(t_cli.parse_args([]), "cpu") is None
         return
     models = t_cli.load_models(subset(ckpt, tmp_path, only=STACK), cfg, device="cpu")
     pipe = t_inf.LipSyncPipeline(cfg, models, device="cpu")
