@@ -206,13 +206,37 @@ result line:
    trainer ((1, 1, 1, 1), 64-d, 16 classes, lr 1e-3, weight decay 0.5) on
    the card and on the CPU from the same state and batch, each of 2 steps'
    updates and the state within ``ARC_SLIM_TOL`` (``phase_arcface``).
+20. sr: ``FullGeneratorSR(in_size=512, out_size=2048)`` at GPEN-BFR-2048's
+   widths (style 512, n_mlp 8, channel_multiplier 2), random weights from
+   seed 0, one forward at batch 1 under bf16 autocast as the final stage
+   runs GPEN: finite, moved by its input, K1 and K3 launched as often as
+   ``kernel_sites`` counts (the counts reset just before and read just
+   after), ms per forward and peak memory. The slim generator (64 -> 256)
+   on the card (kernels) and on the CPU (plain versions), f32, within
+   ``SR_SLIM_TOL`` of the CPU's largest magnitude; ``capture_activations``
+   + ``Diagnostic`` over its forward on the card, CSV to chiprun_out/;
+   ``tile_process`` over RealESRNet x2 at the chain's widths on one 512^2
+   frame (tile 256, pad 10) against the untiled forward (ms, PSNR), and a
+   slim one card vs CPU within ``TILE_SLIM_TOL`` (``phase_sr``).
+21. metrics (on phase 8's cold output and phase 17's two-replica output):
+   a random full-width SyncNet on the cold output's mouth crops (the lower
+   half, bilinear to 48x96, five frames stacked, as
+   tools/parity_harness.py takes them) and its speech's mel chunks, card vs
+   CPU, LSE-D and LSE-C printed as numbers of random weights; PSNR and
+   SSIM of the two-replica output against the cold one; LPIPS at full
+   VGG16 width on two 256^2 pairs and IResNet-50 verification on 16
+   synthetic faces, card vs CPU, with ``evaluate`` and ``tar_at_far``; the
+   RecordIO round trip and ``epoch_indices``; where Pillow imports,
+   ``record_batches`` from a synthetic pack into two full ArcFace steps,
+   else a line naming what was left out (``phase_metrics``).
 
 Every time printed stands beside the card's name and power limit (printed
 first). The line before the last is one JSON object with every kernel's
 numbers, its launches summed over the main paths (the inference slice, the
 CLI's cold run, the first opt-in infer run, the one-card mesh run, GPEN
-training, the train command, GFPGAN training and the one-rank data-parallel
-GPEN steps) and split by path; the last is
+training, the train command, GFPGAN training, the one-rank data-parallel
+GPEN steps and the full-width SR generator's forward) and split by path; the
+last is
 ``{"ok": true, "device": {...}}``. Details go to
 chiprun_out/chip_smoke.json. TF32 is off throughout (f32 convs and matmuls
 run in full f32; the pipeline keeps S3FD, FAN and ReconNet so regardless).
@@ -1542,12 +1566,15 @@ def phase_cli(torch, card):
     FAN here (the CLI has no injection). Then the ``train`` command on the
     same files and clip (``run_train_cmd``), the opt-in ``infer`` settings
     (``run_options``) and ``--parallel.infer_mesh`` (``run_infer_mesh``).
-    Returns the CLI's launches and report, and the train command's, the
-    options' and the mesh's (launches, report)."""
+    Returns the CLI's launches and report, the train command's, the
+    options' and the mesh's (launches, report), and the outputs phase 21
+    scores: the cold run's frames, the two-replica mesh run's and the clip's
+    speech as ``infer`` read it."""
     import shutil
     import tempfile
 
     from s2v_torch import cli
+    from s2v_torch.io.audio_io import load_wav
     from s2v_torch.models.gpen import FullGenerator
 
     t = time.perf_counter()
@@ -1573,12 +1600,15 @@ def phase_cli(torch, card):
               f"{time.perf_counter() - t:.1f} s")
         launches, report = run_cli(torch, card, work, ckpt)
         torch.cuda.empty_cache()
-        mesh = run_infer_mesh(torch, card, work, ckpt, np.load(report["runs"][0]["out"])["frames"])
+        cold = np.load(report["runs"][0]["out"])["frames"]
+        *mesh, two_replicas = run_infer_mesh(torch, card, work, ckpt, cold)
         torch.cuda.empty_cache()
         train_cmd = run_train_cmd(torch, card, work, ckpt)
         torch.cuda.empty_cache()
+        outputs = dict(cold=cold, two_replicas=two_replicas,
+                       speech=load_wav(str(work / "speech.wav")))
         return (launches, report, train_cmd, run_options(torch, card, work, ckpt, x["frames"]),
-                mesh)
+                tuple(mesh), outputs)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -1719,7 +1749,9 @@ def run_infer_mesh(torch, card, work, ckpt, want):
     mesh=make_mesh(devices=["cuda:0", "cuda:0"]))`` with two replicas on the
     card, so that the split and the gather run on the device. Each run's
     frames within one gray level of the plain run's ``want`` (0.1% of
-    subpixels at most), every face valid, K1/K3 launches as derived."""
+    subpixels at most), every face valid, K1/K3 launches as derived. Returns
+    the one-card run's launches, the report and the two-replica run's
+    frames."""
     from s2v_torch import cli
     from s2v_torch.ops.kernels import launch_counts, reset_launch_counts
     from s2v_torch.parallel.mesh import make_mesh
@@ -1784,7 +1816,8 @@ def run_infer_mesh(torch, card, work, ckpt, want):
         chunks = [min(d, n - i) for i in range(0, n, d)]
         calls = sum(c if c % d == 0 else 1 for c in chunks)
         expect = {"fused_act": g1 * calls, "fused_act_bwd": 0, "upfirdn2d": g3 * calls}
-        diff = np.abs(r.pop("frames").astype(np.int32) - want.astype(np.int32))
+        frames = r.pop("frames")
+        diff = np.abs(frames.astype(np.int32) - want.astype(np.int32))
         r.update(expect=expect, gpen_calls=calls, subpixels_differing=int((diff > 0).sum()),
                  share_over_1=float((diff > 1).mean()), frames_per_s=n / r["wall_s"])
         ok = (r["launches"] == expect and r["share_over_1"] <= 1e-3
@@ -1800,7 +1833,7 @@ def run_infer_mesh(torch, card, work, ckpt, want):
             fail(f"infer mesh {r['label']}: launches {r['launches']} (want {expect}), "
                  f"{r['share_over_1']:.2e} of subpixels off by more than 1, valid {r['valid']}")
         report.append(r)
-    return runs[0]["launches"], report
+    return runs[0]["launches"], report, frames  # the last run's: two replicas
 
 
 def init_nccl(torch, work):
@@ -3134,6 +3167,310 @@ def phase_gfpgan_train(torch, card):
     return launches, per
 
 
+SR_FULL = dict(in_size=512, out_size=2048)  # GPEN-BFR-2048's widths (style 512, n_mlp 8, cm 2)
+SR_SLIM = dict(in_size=64, out_size=256, style_dim=64, n_mlp=2, channel_multiplier=0.5,
+               narrow=0.25)
+SR_SLIM_TOL = 1e-3   # x max|CPU|, f32 without TF32
+TILE_SLIM_TOL = 1e-4
+
+
+def phase_sr(torch, card, out_dir):
+    """``FullGeneratorSR`` at GPEN-BFR-2048's widths (in 512, out 2048),
+    random weights from seed 0, one bf16-autocast forward at batch 1 as the
+    final stage runs GPEN, its K1/K3 launches held to ``kernel_sites``; the
+    slim generator card (kernels) vs CPU (plain versions); ``tile_process``
+    over RealESRNet x2 at full width against its untiled forward, and a slim
+    one card vs CPU; ``capture_activations`` + ``Diagnostic`` over the slim
+    generator on the card, CSV to ``out_dir``. Returns (the full-width
+    forward's launches, report)."""
+    from s2v_torch.models.gpen import FullGeneratorSR
+    from s2v_torch.models.rrdbnet import RRDBNet, tile_process
+    from s2v_torch.ops.kernels import launch_counts, reset_launch_counts
+    from s2v_torch.pipeline.metrics import psnr
+    from s2v_torch.train.gan import kernel_sites
+    from s2v_torch.utils.diagnostics import Diagnostic, capture_activations
+
+    report = {}
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        g = FullGeneratorSR(**SR_FULL).cuda().eval()
+    k1, k3 = kernel_sites(g)
+    want = {"fused_act": k1, "fused_act_bwd": 0, "upfirdn2d": k3}
+    gen = torch.Generator().manual_seed(1)
+    x = (torch.rand(1, 3, 512, 512, generator=gen) * 2 - 1).cuda()
+
+    def forward(inp):
+        with torch.no_grad(), torch.autocast("cuda", dtype=torch.bfloat16):
+            return g(inp)
+
+    forward(x)  # warm-up: cuDNN's choices
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    out = forward(x)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    zero = forward(torch.zeros_like(x))
+    ms = event_ms(torch, forward, (x,), iters=5, warmup=1)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    finite = bool(torch.isfinite(out.float()).all())
+    moved = float((out.float() - zero.float()).abs().max())
+    ok = (launches == want and finite and moved > 0
+          and tuple(out.shape) == (1, 3, 2048, 2048))
+    print(f"sr: FullGeneratorSR(512 -> 2048) at GPEN-BFR-2048's widths, bf16 autocast, batch "
+          f"1: {ms:.2f} ms/forward (CUDA events), peak {peak:.2f} GiB, output "
+          f"{tuple(out.shape)} finite {finite}, max change against a zero input {moved:.3f}; "
+          f"launches {launches}, derived from kernel_sites {want}; {'ok' if ok else 'FAIL'}; "
+          f"{card}")
+    if not ok:
+        fail(f"sr full width: launches {launches} (want {want}), finite {finite}, "
+             f"change {moved}, shape {tuple(out.shape)}")
+    report["full"] = dict(ms=ms, peak_gib=peak, launches=launches, expect=want)
+    del g, out, zero
+    torch.cuda.empty_cache()
+
+    # the kernels against their plain versions: slim, card vs CPU, f32
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(2)
+        slim = FullGeneratorSR(**SR_SLIM).eval()
+    xs = torch.rand(2, 3, 64, 64, generator=gen) * 2 - 1
+    with torch.no_grad():
+        want_cpu = slim(xs)
+        card_g = copy.deepcopy(slim).cuda()
+        reset_launch_counts()
+        got = card_g(xs.cuda())
+        torch.cuda.synchronize()
+        slim_launches = launch_counts()
+    s1, s3 = kernel_sites(slim)
+    err = float((got.cpu() - want_cpu).abs().max())
+    scale = float(want_cpu.abs().max())
+    ok = err <= SR_SLIM_TOL * scale and slim_launches == {"fused_act": s1, "fused_act_bwd": 0,
+                                                          "upfirdn2d": s3}
+    print(f"sr reference: slim FullGeneratorSR(64 -> 256) card vs CPU, f32: max abs err "
+          f"{err:.3e} (tol {SR_SLIM_TOL:g} x {scale:.3f}), launches {slim_launches} "
+          f"(sites {s1}/{s3}); {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"sr slim card vs CPU: err {err} of scale {scale}, launches {slim_launches}")
+    report["slim"] = dict(max_abs_err=err, scale=scale, launches=slim_launches)
+
+    # per-layer statistics of the slim generator's forward on the card, one
+    # image; singular values only of axes under 64 wide (the 256-wide
+    # spatial axes' SVDs took seconds of host time each)
+    t = time.perf_counter()
+    with torch.no_grad():
+        _, acts = capture_activations(card_g, xs[:1].cuda())
+    diag = Diagnostic("sr_slim", max_pca_dim=64)
+    diag.accumulate_tree(acts, kind="output")
+    path = diag.to_csv(str(out_dir / "sr_diagnostic.csv"))
+    rows = diag.rows()
+    ok = len(acts) > 0 and all(math.isfinite(r["rms"]) for r in rows)
+    print(f"sr diagnostic: {len(acts)} submodules captured, {len(rows)} rows to {path} in "
+          f"{time.perf_counter() - t:.1f} s; {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("sr diagnostic: no activation or a non-finite statistic")
+    report["diagnostic"] = dict(modules=len(acts), rows=len(rows))
+    del card_g, acts
+
+    # tiled RealESRNet x2 at full width on one 512^2 frame, tile 256, pad 10
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(3)
+        sr = RRDBNet(scale=2, num_feat=32, num_block=23, num_grow_ch=32).cuda().eval()
+    frame = torch.rand(1, 3, 512, 512, generator=gen).cuda()
+
+    def untiled():
+        with torch.no_grad(), torch.autocast("cuda", dtype=torch.bfloat16):
+            return sr(frame)
+
+    def tiled():
+        with torch.no_grad(), torch.autocast("cuda", dtype=torch.bfloat16):
+            return tile_process(sr, frame, 2, tile_size=256, tile_pad=10)
+
+    whole, tiles = untiled().float(), tiled()
+    db = float(psnr(tiles.clamp(0, 1), whole.clamp(0, 1), max_val=1.0))
+    t_ms, u_ms = event_ms(torch, tiled, iters=3, warmup=1), event_ms(torch, untiled, iters=3,
+                                                                     warmup=1)
+    ok = tuple(tiles.shape) == (1, 3, 1024, 1024) and bool(torch.isfinite(tiles).all())
+    print(f"sr tiles: RealESRNet x2 on 512^2, tile 256 pad 10 (4 windows of 276^2): "
+          f"{t_ms:.2f} ms tiled vs {u_ms:.2f} ms untiled (CUDA events, bf16 autocast), PSNR "
+          f"tiled vs untiled {db:.2f} dB; {'ok' if ok else 'FAIL'}; {card}")
+    if not ok:
+        fail(f"sr tiles: output {tuple(tiles.shape)} or not finite")
+    report["tiles"] = dict(tiled_ms=t_ms, untiled_ms=u_ms, psnr_db=db)
+    del sr, whole, tiles
+    torch.cuda.empty_cache()
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(4)
+        small = RRDBNet(scale=2, num_feat=16, num_block=2, num_grow_ch=8).eval()
+    img = torch.rand(1, 3, 70, 50, generator=gen)
+    with torch.no_grad():
+        on_cpu = tile_process(small, img, 2, tile_size=32, tile_pad=4)
+        on_card = tile_process(copy.deepcopy(small).cuda(), img.cuda(), 2, tile_size=32,
+                               tile_pad=4).cpu()
+    err = float((on_card - on_cpu).abs().max())
+    ok = err <= TILE_SLIM_TOL * max(1.0, float(on_cpu.abs().max()))
+    print(f"sr tiles reference: slim RRDBNet x2 on 70x50, tile 32 pad 4, card vs CPU: max abs "
+          f"err {err:.3e} (tol {TILE_SLIM_TOL:g}); {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"sr tiles slim card vs CPU: {err}")
+    report["tiles"]["slim_max_abs_err"] = err
+    return launches, report
+
+
+def he_init(torch, module):
+    """He-normal convs with zero biases: with PyTorch's default init a deep
+    random stack shrinks its activations some 2.5x per layer, and LPIPS and
+    SyncNet normalise them against 1e-10 and 1e-12."""
+    for m in module.modules():
+        if isinstance(m, torch.nn.Conv2d):
+            torch.nn.init.kaiming_normal_(m.weight, nonlinearity="relu")
+            torch.nn.init.zeros_(m.bias)
+    return module
+
+
+LPIPS_TOL = 1e-4     # relative, card vs CPU, f32
+SYNC_TOL = 1e-4      # absolute, embeddings card vs CPU
+EMBED_TOL = 1e-3     # relative L2, IResNet-50 embeddings card vs CPU
+
+
+def phase_metrics(torch, card, outputs, mesh_report):
+    """LSE-D/LSE-C with a random full-width SyncNet on phase 8's cold output,
+    PSNR and SSIM of phase 17's two-replica output against it, LPIPS at full
+    VGG16 width, IResNet-50 verification, the RecordIO container; each model
+    card vs CPU. Without Pillow the JPEG data path is left out, and a line
+    says so."""
+    import tempfile
+
+    from s2v_torch.audio import mel_chunks_for_frames, melspectrogram
+    from s2v_torch.models.iresnet import IResNet
+    from s2v_torch.models.vgg import LPIPS_ENDS, VGG16Features, lpips_distance
+    from s2v_torch.ops.image import resize_bilinear
+    from s2v_torch.pipeline.metrics import SyncNet, lse_metrics, psnr, ssim
+    from s2v_torch.train import arcface_data as AD
+    from s2v_torch.train.verification import evaluate, extract_embeddings, tar_at_far
+
+    report = {}
+    cold = outputs["cold"]
+    n = len(cold)
+    frames = torch.from_numpy(cold).permute(0, 3, 1, 2).float()
+    # the mouth crops of tools/parity_harness.py: lower half, 48x96, 5 frames
+    mouth = resize_bilinear(frames[:, :, frames.shape[2] // 2:], (48, 96)) / 255.0
+    face = torch.cat([mouth[np.clip(np.arange(n) + k - 2, 0, n - 1)] for k in range(5)], 1)
+    mel = melspectrogram(torch.from_numpy(outputs["speech"]))
+    chunks = mel_chunks_for_frames(mel, n, 25.0)[:, None]
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(5)
+        net = he_init(torch, SyncNet()).eval()
+    emb = {}
+    with torch.no_grad():
+        for name, dev, m in (("cpu", "cpu", net), ("card", "cuda", copy.deepcopy(net).cuda())):
+            emb[name] = [e.cpu().numpy() for e in m(face.to(dev), chunks.to(dev))]
+    err = max(float(np.abs(a - b).max()) for a, b in zip(emb["card"], emb["cpu"]))
+    lse_d, lse_c = lse_metrics(*emb["card"])
+    ok = err <= SYNC_TOL and math.isfinite(lse_d) and math.isfinite(lse_c)
+    print(f"metrics: SyncNet (full width, random weights) on the cli phase's cold output, "
+          f"{n} frames: embeddings card vs CPU max abs err {err:.2e} (tol {SYNC_TOL:g}); "
+          f"LSE-D {lse_d:.4f}, LSE-C {lse_c:.4f} from random weights (they prove the path, "
+          f"not lip sync); {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"metrics SyncNet: err {err}, LSE {lse_d} / {lse_c}")
+    report["syncnet"] = dict(max_abs_err=err, lse_d=lse_d, lse_c=lse_c)
+
+    a = frames.cuda()
+    b = torch.from_numpy(outputs["two_replicas"]).permute(0, 3, 1, 2).float().cuda()
+    db, sim = float(psnr(b, a)), float(ssim(b, a))
+    differ = mesh_report[1]["subpixels_differing"]
+    ok = db >= 40.0 and sim >= 0.99
+    print(f"metrics: infer mesh two replicas vs the cold run, {n} frames of 1024^2: PSNR "
+          f"{db:.2f} dB (floor 40), SSIM {sim:.6f} (floor 0.99), {differ} subpixels differ "
+          f"(phase 17); {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"metrics: two replicas vs cold PSNR {db} dB, SSIM {sim}")
+    report["mesh_vs_cold"] = dict(psnr_db=db, ssim=sim, subpixels_differing=differ)
+    del a, b
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(6)
+        vgg = he_init(torch, VGG16Features(LPIPS_ENDS)).eval()
+        lin = [torch.rand(c) for c in (64, 128, 256, 512, 512)]
+    pair = resize_bilinear(frames[:4], (256, 256)) / 127.5 - 1.0
+    dist = {}
+    with torch.no_grad():
+        for name, dev, m in (("cpu", "cpu", vgg), ("card", "cuda", copy.deepcopy(vgg).cuda())):
+            dist[name] = lpips_distance(m, [w.to(dev) for w in lin], pair[:2].to(dev),
+                                        pair[2:].to(dev)).cpu()
+    rel = float(((dist["card"] - dist["cpu"]).abs() / dist["cpu"].abs()).max())
+    ok = rel <= LPIPS_TOL and bool(torch.isfinite(dist["card"]).all())
+    print(f"metrics: LPIPS (VGG16 to conv5_3, random weights and lin heads) on two 256^2 "
+          f"pairs: {[round(float(v), 5) for v in dist['card']]}, card vs CPU max relative err "
+          f"{rel:.2e} (tol {LPIPS_TOL:g}); {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"metrics LPIPS card vs CPU: {rel}")
+    report["lpips"] = dict(values=dist["card"].tolist(), max_rel_err=rel)
+    del vgg
+
+    faces = synthetic_faces(16, 112, seed=7).astype(np.float32) / 127.5 - 1.0
+    issame = np.arange(8) % 2 == 0
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(8)
+        backbone = IResNet((3, 4, 14, 3), 512).eval()
+    embs = {name: extract_embeddings(m, faces, batch=16, device=dev)
+            for name, dev, m in (("cpu", "cpu", backbone),
+                                 ("card", "cuda", copy.deepcopy(backbone).cuda()))}
+    rel = float(np.linalg.norm(embs["card"] - embs["cpu"]) / np.linalg.norm(embs["cpu"]))
+    acc, std = evaluate(embs["card"], issame, nrof_folds=4)
+    scores = np.sum(embs["card"][0::2] * embs["card"][1::2], 1)
+    tars = tar_at_far(scores, issame, far_targets=(0.25, 0.5))
+    ok = rel <= EMBED_TOL and math.isfinite(acc)
+    print(f"metrics: verification through IResNet-50 (random weights) on 16 synthetic 112^2 "
+          f"faces (8 pairs): embeddings card vs CPU relative L2 {rel:.2e} (tol {EMBED_TOL:g}); "
+          f"accuracy {acc:.3f} +- {std:.3f}, TAR@FAR {tars}; {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"metrics verification: card vs CPU {rel}, accuracy {acc}")
+    report["verification"] = dict(rel_l2=rel, accuracy=acc, std=std, tar_at_far=tars)
+    del backbone
+
+    with tempfile.TemporaryDirectory(prefix="s2v_rec_") as work:
+        rng = np.random.RandomState(9)
+        records = [(0, np.asarray([9.0, 13.0], np.float32), b"")] + [
+            (i, float(i % 4), rng.bytes(rng.randint(0, 200))) for i in range(1, 9)]
+        AD.write_record_file(f"{work}/train", records)
+        rec = AD.RecordFile(f"{work}/train")
+        back = [rec.read_idx(k) for k, _, _ in records]
+        rec.close()
+        ok = all(p == payload and np.array_equal(np.asarray(lab), np.asarray(label))
+                 for (_, lab, p), (_, label, payload) in zip(back, records))
+        shards = [AD.epoch_indices(103, 2, r, 8) for r in range(8)]
+        ok = ok and sorted(set(np.concatenate(shards))) == list(range(103)) and \
+            {len(sh) for sh in shards} == {13}
+        try:
+            import PIL  # noqa: F401
+            have_pil = True
+        except ImportError:
+            have_pil = False
+        if have_pil:
+            from s2v_torch.train.arcface import make_arcface_trainer
+
+            ds = AD.ArcFaceRecordDataset(AD.write_synthetic_pack(f"{work}/pack", 8, 4))
+            state, step = make_arcface_trainer(ds.num_classes, embedding_size=512)
+            losses = []
+            for imgs, labels in AD.record_batches(ds, batch_size=8, index=0, count=2):
+                state, m = step(state, imgs, labels)
+                losses.append(float(m["loss"]))
+            ok = ok and len(losses) == 2 and all(math.isfinite(v) for v in losses)
+            left = f"record_batches into two full ArcFace steps, losses {losses}"
+        else:
+            left = ("Pillow is not installed here, so the JPEG decode "
+                    "(ArcFaceRecordDataset.__getitem__), record_batches and "
+                    "write_synthetic_pack were left out (the CPU tests run them)")
+    print(f"metrics: RecordIO round trip of {len(records)} records (header0 included) and "
+          f"epoch_indices over 8 ranks; {left}; {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("metrics: the RecordIO round trip, the shards or the ArcFace steps")
+    report["arcface_data"] = dict(pillow=have_pil, note=left)
+    return report
+
+
 def main():
     import argparse
 
@@ -3183,7 +3520,7 @@ def main():
     torch.cuda.empty_cache()
     (cli_launches, report["cli"], (cmd_launches, report["train_cmd"]),
      (opt_launches, report["infer_options"]),
-     (mesh_launches, report["infer_mesh"])) = phase_cli(torch, card)
+     (mesh_launches, report["infer_mesh"]), outputs) = phase_cli(torch, card)
     torch.cuda.empty_cache()
     report["train_reference"] = phase_train_reference(torch)
     train_launches, report["train"] = phase_train(torch, card)
@@ -3210,10 +3547,19 @@ def main():
     finally:
         dist.destroy_process_group()
         shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    sr_launches, report["sr"] = phase_sr(torch, card, out_dir)
+    report["sr"]["wall_s"] = time.perf_counter() - t
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    report["metrics"] = phase_metrics(torch, card, outputs, report["infer_mesh"])
+    report["metrics"]["wall_s"] = time.perf_counter() - t
+    print(f"phases 20-21: {report['sr']['wall_s']:.1f} s and {report['metrics']['wall_s']:.1f} s")
     report["seconds"] = time.perf_counter() - t_start
     paths = dict(slice=launches, cli=cli_launches, infer_options=opt_launches,
                  infer_mesh=mesh_launches, train=train_launches, train_cmd=cmd_launches,
-                 gfpgan_train=gfpgan_launches, gan_dp=gan_dp_launches)
+                 gfpgan_train=gfpgan_launches, gan_dp=gan_dp_launches, sr=sr_launches)
 
     def main_case(name, dtype):  # the first case at a main path's largest shape
         return next(c for c in cases if c["kernel"] == name and c["dtype"] == dtype)

@@ -2,7 +2,8 @@
 third_part/GPEN/face_model/gpen_model.py), NCHW. The final full-frame stage
 runs ``FullGenerator(size=2048)`` (GPEN-BFR-2048); adversarial training
 (``s2v_torch.train.gan``) pairs a ``FullGenerator`` with the
-``Discriminator``.
+``Discriminator``; ``FullGeneratorSR`` is the super-resolving variant
+(GPEN-BFR-2048-SR's layout: a smaller encoder under a larger generator).
 
 A CNN encoder produces a latent and one feature map per resolution; a
 StyleGAN2 generator consumes the latent while the encoder features are
@@ -173,7 +174,12 @@ class NoiseInjection(nn.Module):
 
 
 class StyledConv(nn.Module):
-    """gpen_model.py:316-352: modconv -> concat encoder "noise" -> fused act."""
+    """gpen_model.py:316-352: modconv -> concat encoder "noise" -> fused act.
+    A level without encoder features (``noise`` None, FullGeneratorSR's
+    levels above its input size) concatenates zeros under
+    ``deterministic``, else a standard normal draw from ``generator`` (a
+    ``torch.Generator`` on the activations' device): the activation still
+    runs over all ``2 * cout`` channels."""
 
     def __init__(self, cin, cout, kernel, style_dim, upsample=False):
         super().__init__()
@@ -181,8 +187,16 @@ class StyledConv(nn.Module):
         self.noise = NoiseInjection()
         self.activate = FusedLeakyReLU(cout * 2)
 
-    def forward(self, x, style, noise):
+    def forward(self, x, style, noise, deterministic=True, generator=None):
         out = self.conv(x, style)
+        if noise is None:
+            if deterministic:
+                noise = torch.zeros_like(out)
+            elif generator is None:
+                raise ValueError("StyledConv: random noise needs a torch.Generator")
+            else:
+                noise = torch.randn(out.shape, generator=generator, device=out.device,
+                                    dtype=out.dtype)
         noise = self.noise.weight.to(out.dtype) * noise.to(out.dtype)
         return self.activate(torch.cat([out, noise], dim=1))
 
@@ -274,14 +288,15 @@ class Generator(nn.Module):
             self.to_rgbs.append(ToRGB(cout * 2, style_dim))
             cin = cout
 
-    def forward(self, styles, noise):
+    def forward(self, styles, noise, deterministic=True, generator=None):
         latent = self.style(styles)  # [B, style_dim]; every layer's latent
         out = self.input.input.to(latent.dtype).repeat(latent.shape[0], 1, 1, 1)
-        out = self.conv1(out, latent, noise[0])
+        kw = dict(deterministic=deterministic, generator=generator)
+        out = self.conv1(out, latent, noise[0], **kw)
         skip = self.to_rgb1(out, latent)
         for k, to_rgb in enumerate(self.to_rgbs):
-            out = self.convs[2 * k](out, latent, noise[2 * k + 1])
-            out = self.convs[2 * k + 1](out, latent, noise[2 * k + 2])
+            out = self.convs[2 * k](out, latent, noise[2 * k + 1], **kw)
+            out = self.convs[2 * k + 1](out, latent, noise[2 * k + 2], **kw)
             skip = to_rgb(out, latent, skip)
         return skip
 
@@ -293,12 +308,16 @@ class FullGenerator(nn.Module):
     def __init__(self, size=512, style_dim=512, n_mlp=8, channel_multiplier=2,
                  narrow=1.0):
         super().__init__()
+        self._build(size, size, style_dim, n_mlp, channel_multiplier, narrow)
+
+    def _build(self, in_size, out_size, style_dim, n_mlp, channel_multiplier, narrow):
         ch = channels_table(narrow, channel_multiplier)
-        self.log_size = int(math.log2(size))
-        self.generator = Generator(size, style_dim, n_mlp, channel_multiplier,
+        self.log_size = int(math.log2(in_size))
+        self.free_levels = int(math.log2(out_size)) - self.log_size
+        self.generator = Generator(out_size, style_dim, n_mlp, channel_multiplier,
                                    narrow=narrow)
-        self.ecd0 = nn.Sequential(ConvLayer(3, ch[size], 1))
-        cin = ch[size]
+        self.ecd0 = nn.Sequential(ConvLayer(3, ch[in_size], 1))
+        cin = ch[in_size]
         for idx, i in enumerate(range(self.log_size, 2, -1)):
             cout = ch[2 ** (i - 1)]
             self.add_module(f"ecd{idx + 1}",
@@ -307,15 +326,36 @@ class FullGenerator(nn.Module):
         self.final_linear = nn.Sequential(
             EqualLinear(ch[4] * 4 * 4, style_dim, activation="fused_lrelu"))
 
-    def forward(self, x):
-        feats = []
+    def encode(self, x):
+        """(latent, the generator's noise list): the encoder's features, each
+        twice, deepest first, the first dropped; ``None`` for the levels
+        above the input size."""
+        feats = [None] * self.free_levels
         for idx in range(self.log_size - 1):
             x = getattr(self, f"ecd{idx}")(x)
             feats.append(x)
         latent = self.final_linear(x.flatten(1))
-        # encoder features as noise: each twice, deepest first, drop the first
-        noise = [f for f in feats for _ in range(2)][::-1][1:]
-        return self.generator(latent, noise)
+        return latent, [f for f in feats for _ in range(2)][::-1][1:]
+
+    def forward(self, x):
+        return self.generator(*self.encode(x))
+
+
+class FullGeneratorSR(FullGenerator):
+    """gpen_model.py:752-818: an ``in_size`` encoder and an ``out_size``
+    generator; the generator levels above ``in_size`` take no encoder
+    features (zeros under ``deterministic``, else noise drawn from
+    ``generator``: see ``StyledConv``). The reference FullGenerator_SR's
+    key names, which are FullGenerator's."""
+
+    def __init__(self, in_size=512, out_size=2048, style_dim=512, n_mlp=8,
+                 channel_multiplier=2, narrow=1.0):
+        nn.Module.__init__(self)
+        self._build(in_size, out_size, style_dim, n_mlp, channel_multiplier, narrow)
+
+    def forward(self, x, deterministic=True, generator=None):
+        return self.generator(*self.encode(x), deterministic=deterministic,
+                              generator=generator)
 
 
 def minibatch_stddev(out: torch.Tensor, group=None) -> torch.Tensor:
@@ -388,3 +428,25 @@ def fullgenerator_arch(state_dict, size: int = 512) -> FullGenerator:
         return FullGenerator(**kw)
     except (KeyError, ZeroDivisionError):
         return FullGenerator(size=size)
+
+
+def full_generator_sr_arch(state_dict, in_size: int = 512,
+                           out_size: int = 2048) -> FullGeneratorSR:
+    """The FullGeneratorSR geometry of a checkpoint's state_dict, as
+    ``fullgenerator_arch`` reads it: narrow, style_dim, n_mlp, and the
+    channel multiplier from the generator's last level (``out_size`` is at
+    least 64^2 in every SR file). The sizes are the caller's. Without those
+    keys, the defaults, whose strict load then names them."""
+    try:
+        narrow = int(state_dict["generator.input.input"].shape[1]) / 512.0
+        last = int(math.log2(out_size)) * 2 - 5  # the generator's last StyledConv
+        cm = (int(state_dict[f"generator.convs.{last}.conv.weight"].shape[1])
+              / channels_table(narrow, 1)[out_size])
+        return FullGeneratorSR(
+            in_size, out_size, narrow=narrow,
+            style_dim=int(state_dict["final_linear.0.weight"].shape[0]),
+            n_mlp=sum(1 for k in state_dict
+                      if k.startswith("generator.style.") and k.endswith(".weight")),
+            channel_multiplier=int(cm) if cm == int(cm) else cm)
+    except (KeyError, ZeroDivisionError):
+        return FullGeneratorSR(in_size, out_size)

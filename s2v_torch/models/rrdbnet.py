@@ -1,6 +1,7 @@
 """RRDBNet (Real-ESRGAN) — the RealESRNet x2 background super-resolution of
 GPEN's final enhancement (reference: third_part/GPEN/sr_model/
-rrdbnet_arch.py), NCHW, input in [0, 1]."""
+rrdbnet_arch.py), NCHW, input in [0, 1], and the reference's tiled
+forward (``tile_process``)."""
 
 from __future__ import annotations
 
@@ -66,6 +67,31 @@ class RRDBNet(nn.Module):
             h, w = feat.shape[-2:]
             feat = F.leaky_relu(conv(resize_nearest(feat, (2 * h, 2 * w))), 0.2)
         return self.conv_last(F.leaky_relu(self.conv_hr(feat), 0.2))
+
+
+def tile_process(apply_fn, img: torch.Tensor, scale: int, tile_size: int = 256,
+                 tile_pad: int = 10) -> torch.Tensor:
+    """Tiled super-resolution (reference: sr_model/real_esrnet.py:32-100;
+    s2v_tpu's ``tile_process``): each ``tile_size`` square of ``img`` [B, C,
+    H, W] is upscaled with ``tile_pad`` pixels of context by ``apply_fn``
+    ([B, C, th, tw] -> [B, C, th * scale, tw * scale]) and its own region
+    cut from the result. Every window has one shape, (th, tw) = the padded
+    tile clipped to the image, so its origin is clamped to the image
+    instead of the window being cut at the borders. Returns float32 [B, C,
+    H * scale, W * scale] on ``img``'s device."""
+    b, c, h, w = img.shape
+    out = torch.zeros((b, c, h * scale, w * scale), dtype=torch.float32, device=img.device)
+    th, tw = min(tile_size + 2 * tile_pad, h), min(tile_size + 2 * tile_pad, w)
+    for sy in range(0, h, tile_size):
+        for sx in range(0, w, tile_size):
+            ey, ex = min(sy + tile_size, h), min(sx + tile_size, w)
+            py0 = min(max(sy - tile_pad, 0), h - th)
+            px0 = min(max(sx - tile_pad, 0), w - tw)
+            up = apply_fn(img[:, :, py0:py0 + th, px0:px0 + tw])
+            oy, ox = (sy - py0) * scale, (sx - px0) * scale
+            out[:, :, sy * scale:ey * scale, sx * scale:ex * scale] = up[
+                :, :, oy:oy + (ey - sy) * scale, ox:ox + (ex - sx) * scale]
+    return out
 
 
 def rrdbnet_arch(state_dict, scale: int = 4, num_out_ch: int = 3) -> RRDBNet:

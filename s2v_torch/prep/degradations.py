@@ -1,34 +1,39 @@
-"""The training-data degradation chain that ``face_batches`` runs (a copy of
-s2v_tpu/prep/degradations.py's numpy/scipy code; reference:
-third_part/GPEN/training/data_loader/degradations.py and dataset_face.py
-GFPGAN_degradation).
+"""Training-data degradation pipeline, the full GPEN/GFPGAN kernel zoo (a
+copy of s2v_tpu/prep/degradations.py's numpy/scipy code; reference:
+third_part/GPEN/training/data_loader/degradations.py:16-765 and
+dataset_face.py:14-71 GFPGAN_degradation).
 
-Per image: random hflip, random grayscale, then ``degrade``: an isotropic or
-anisotropic Gaussian blur, a bilinear downsample, Gaussian noise, JPEG
-(Pillow, imported only when the step runs; ``jpeg_range=None`` skips it),
-round/clip, and the resize back. The ranges are the chain's defaults, kept
-as constants; the reference's other kernel types and options have no caller
-here yet.
+Kernel families (degradations.py):
+- bivariate (an)isotropic Gaussian          :84-109
+- bivariate generalized Gaussian (beta pow) :112-144
+- bivariate plateau 1/(1+x^beta)            :147-176
+- random_* samplers with multiplicative
+  kernel noise                              :179-325
+- random_mixed_kernels dispatch             :327-388
+- circular_lowpass_kernel (2-D sinc)        :392-417
+
+Noise (degradations.py):
+- Gaussian (+gray, +rounds)                 :420-459, 516-534
+- Poisson / shot (+gray, +rounds)           :560-607, 686-706
+- JPEG compression                          :732-765
 
 All stochastic functions take an explicit ``np.random.Generator``; from the
-same seed the chain gives the JAX package's batches bit for bit, so every
-random draw the JAX package makes is made here too, in the same order, even
-where its probability is 0. Host-side numpy: degradation synthesis is
-data-pipeline work beside the device step. Channel order is RGB throughout.
+same seed every function gives s2v_tpu's output bit for bit, so every
+random draw s2v_tpu makes is made here too, in the same order, even where
+its probability is 0. Host-side numpy: degradation synthesis is
+data-pipeline work beside the device step.
+
+JPEG uses Pillow, imported only when that step runs (``jpeg_range=None``
+skips it; the card's machine has no Pillow). Channel order is RGB
+throughout (the reference operates on cv2's BGR and flips at the end,
+dataset_face.py:105-106).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
-
-BLUR_KERNEL_SIZE = 41
-BLUR_SIGMA = (0.1, 10.0)
-DOWNSAMPLE_RANGE = (0.8, 8.0)
-NOISE_RANGE = (0.0, 20.0)  # sigma, on the 0..255 scale
-JPEG_RANGE = (60, 100)
-GRAY_PROB = 0.2
 
 # ---------------------------------------------------------------------------
 # kernel synthesis
@@ -53,10 +58,20 @@ def mesh_grid(kernel_size: int):
     ).reshape(kernel_size, kernel_size, 2)
     return xy, xx, yy
 
+
 def pdf2(sigma_matrix: np.ndarray, grid: np.ndarray) -> np.ndarray:
     """Unnormalized bivariate Gaussian pdf on the grid (degradations.py:50-63)."""
     inverse_sigma = np.linalg.inv(sigma_matrix)
     return np.exp(-0.5 * np.sum(np.dot(grid, inverse_sigma) * grid, 2))
+
+
+def cdf2(d_matrix: np.ndarray, grid: np.ndarray) -> np.ndarray:
+    """Skewed standard-bivariate-Gaussian CDF (degradations.py:66-81)."""
+    from scipy.stats import multivariate_normal
+
+    rv = multivariate_normal([0, 0], [[1, 0], [0, 1]])
+    return rv.cdf(np.dot(grid, d_matrix))
+
 
 def bivariate_gaussian(kernel_size: int, sig_x: float, sig_y: float,
                        theta: float, isotropic: bool = True) -> np.ndarray:
@@ -70,19 +85,206 @@ def bivariate_gaussian(kernel_size: int, sig_x: float, sig_y: float,
     return kernel / np.sum(kernel)
 
 
-def random_mixed_kernels(rng: np.random.Generator) -> np.ndarray:
-    """The mixed-kernel draw (degradations.py:179-221, 327-388) as the chain
-    runs it: an isotropic or anisotropic Gaussian, half and half, sigmas in
-    ``BLUR_SIGMA``, any rotation, no kernel noise."""
-    isotropic = int(rng.choice(2, p=np.array([0.5, 0.5]))) == 0
-    sigma_x = rng.uniform(*BLUR_SIGMA)
+def bivariate_generalized_gaussian(
+    kernel_size: int, sig_x: float, sig_y: float, theta: float, beta: float,
+    isotropic: bool = True,
+) -> np.ndarray:
+    """exp(-0.5 * (x^T S^-1 x)^beta); beta=1 is Gaussian
+    (degradations.py:112-144)."""
+    grid, _, _ = mesh_grid(kernel_size)
     if isotropic:
-        sigma_y, theta = sigma_x, 0.0
+        sigma = np.array([[sig_x ** 2, 0], [0, sig_x ** 2]])
     else:
-        sigma_y, theta = rng.uniform(*BLUR_SIGMA), rng.uniform(-np.pi, np.pi)
-    kernel = bivariate_gaussian(BLUR_KERNEL_SIZE, sigma_x, sigma_y, theta,
-                                isotropic)
-    return kernel / np.sum(kernel)  # the reference normalises twice
+        sigma = sigma_matrix2(sig_x, sig_y, theta)
+    inverse_sigma = np.linalg.inv(sigma)
+    kernel = np.exp(
+        -0.5 * np.power(np.sum(np.dot(grid, inverse_sigma) * grid, 2), beta))
+    return kernel / np.sum(kernel)
+
+
+def bivariate_plateau(
+    kernel_size: int, sig_x: float, sig_y: float, theta: float, beta: float,
+    isotropic: bool = True,
+) -> np.ndarray:
+    """1 / ((x^T S^-1 x)^beta + 1) plateau kernel (degradations.py:147-176)."""
+    grid, _, _ = mesh_grid(kernel_size)
+    if isotropic:
+        sigma = np.array([[sig_x ** 2, 0], [0, sig_x ** 2]])
+    else:
+        sigma = sigma_matrix2(sig_x, sig_y, theta)
+    inverse_sigma = np.linalg.inv(sigma)
+    kernel = np.reciprocal(
+        np.power(np.sum(np.dot(grid, inverse_sigma) * grid, 2), beta) + 1)
+    return kernel / np.sum(kernel)
+
+
+def circular_lowpass_kernel(cutoff: float, kernel_size: int,
+                            pad_to: int = 0) -> np.ndarray:
+    """2-D sinc filter via the first-order Bessel function
+    (degradations.py:392-417). ``cutoff`` in radians (pi = Nyquist)."""
+    from scipy import special
+
+    assert kernel_size % 2 == 1, "Kernel size must be an odd number."
+    c = (kernel_size - 1) / 2
+    with np.errstate(divide="ignore", invalid="ignore"):
+        kernel = np.fromfunction(
+            lambda x, y: cutoff
+            * special.j1(cutoff * np.sqrt((x - c) ** 2 + (y - c) ** 2))
+            / (2 * np.pi * np.sqrt((x - c) ** 2 + (y - c) ** 2)),
+            [kernel_size, kernel_size],
+        )
+    kernel[(kernel_size - 1) // 2, (kernel_size - 1) // 2] = (
+        cutoff ** 2 / (4 * np.pi))
+    kernel = kernel / np.sum(kernel)
+    if pad_to > kernel_size:
+        pad = (pad_to - kernel_size) // 2
+        kernel = np.pad(kernel, ((pad, pad), (pad, pad)))
+    return kernel
+
+
+# ---------------------------------------------------------------------------
+# random kernel samplers
+# ---------------------------------------------------------------------------
+
+
+def _sample_sigmas(rng, sigma_x_range, sigma_y_range, rotation_range,
+                   isotropic):
+    sigma_x = rng.uniform(*sigma_x_range)
+    if isotropic:
+        return sigma_x, sigma_x, 0.0
+    return (sigma_x, rng.uniform(*sigma_y_range),
+            rng.uniform(*rotation_range))
+
+
+def _sample_beta(rng, beta_range):
+    # the reference assumes beta_range straddles 1 and splits 50/50 below
+    # and above it (degradations.py:260-264, 312-316)
+    if rng.uniform() < 0.5:
+        return rng.uniform(beta_range[0], 1)
+    return rng.uniform(1, beta_range[1])
+
+
+def _apply_kernel_noise(rng, kernel, noise_range):
+    if noise_range is not None:
+        kernel = kernel * rng.uniform(*noise_range, size=kernel.shape)
+    return kernel / np.sum(kernel)
+
+
+def random_bivariate_gaussian(
+    rng: np.random.Generator, kernel_size: int,
+    sigma_x_range: Tuple[float, float],
+    sigma_y_range: Tuple[float, float],
+    rotation_range: Tuple[float, float],
+    noise_range: Optional[Tuple[float, float]] = None,
+    isotropic: bool = True,
+) -> np.ndarray:
+    """degradations.py:179-221 (with optional multiplicative kernel noise)."""
+    assert kernel_size % 2 == 1, "Kernel size must be an odd number."
+    sx, sy, rot = _sample_sigmas(rng, sigma_x_range, sigma_y_range,
+                                 rotation_range, isotropic)
+    kernel = bivariate_gaussian(kernel_size, sx, sy, rot, isotropic)
+    return _apply_kernel_noise(rng, kernel, noise_range)
+
+
+def random_bivariate_generalized_gaussian(
+    rng: np.random.Generator, kernel_size: int,
+    sigma_x_range: Tuple[float, float],
+    sigma_y_range: Tuple[float, float],
+    rotation_range: Tuple[float, float],
+    beta_range: Tuple[float, float],
+    noise_range: Optional[Tuple[float, float]] = None,
+    isotropic: bool = True,
+) -> np.ndarray:
+    """degradations.py:223-273."""
+    assert kernel_size % 2 == 1, "Kernel size must be an odd number."
+    sx, sy, rot = _sample_sigmas(rng, sigma_x_range, sigma_y_range,
+                                 rotation_range, isotropic)
+    beta = _sample_beta(rng, beta_range)
+    kernel = bivariate_generalized_gaussian(kernel_size, sx, sy, rot, beta,
+                                            isotropic)
+    return _apply_kernel_noise(rng, kernel, noise_range)
+
+
+def random_bivariate_plateau(
+    rng: np.random.Generator, kernel_size: int,
+    sigma_x_range: Tuple[float, float],
+    sigma_y_range: Tuple[float, float],
+    rotation_range: Tuple[float, float],
+    beta_range: Tuple[float, float],
+    noise_range: Optional[Tuple[float, float]] = None,
+    isotropic: bool = True,
+) -> np.ndarray:
+    """degradations.py:275-325."""
+    assert kernel_size % 2 == 1, "Kernel size must be an odd number."
+    sx, sy, rot = _sample_sigmas(rng, sigma_x_range, sigma_y_range,
+                                 rotation_range, isotropic)
+    beta = _sample_beta(rng, beta_range)
+    kernel = bivariate_plateau(kernel_size, sx, sy, rot, beta, isotropic)
+    return _apply_kernel_noise(rng, kernel, noise_range)
+
+
+def random_mixed_kernels(
+    rng: np.random.Generator,
+    kernel_list: Sequence[str],
+    kernel_prob: Sequence[float],
+    kernel_size: int = 21,
+    sigma_x_range: Tuple[float, float] = (0.6, 5),
+    sigma_y_range: Tuple[float, float] = (0.6, 5),
+    rotation_range: Tuple[float, float] = (-np.pi, np.pi),
+    betag_range: Tuple[float, float] = (0.5, 8),
+    betap_range: Tuple[float, float] = (0.5, 8),
+    noise_range: Optional[Tuple[float, float]] = None,
+) -> np.ndarray:
+    """The mixed-kernel dispatch (degradations.py:327-388): draw a kernel
+    type from ``kernel_list`` with ``kernel_prob`` then sample it. Types:
+    iso | aniso | generalized_iso | generalized_aniso | plateau_iso |
+    plateau_aniso. Plateau kernels never get kernel noise (the reference
+    hard-codes noise_range=None there, degradations.py:383-387)."""
+    p = np.asarray(kernel_prob, np.float64)
+    kernel_type = kernel_list[int(rng.choice(len(kernel_list), p=p / p.sum()))]
+    if kernel_type == "iso":
+        return random_bivariate_gaussian(
+            rng, kernel_size, sigma_x_range, sigma_y_range, rotation_range,
+            noise_range=noise_range, isotropic=True)
+    if kernel_type == "aniso":
+        return random_bivariate_gaussian(
+            rng, kernel_size, sigma_x_range, sigma_y_range, rotation_range,
+            noise_range=noise_range, isotropic=False)
+    if kernel_type == "generalized_iso":
+        return random_bivariate_generalized_gaussian(
+            rng, kernel_size, sigma_x_range, sigma_y_range, rotation_range,
+            betag_range, noise_range=noise_range, isotropic=True)
+    if kernel_type == "generalized_aniso":
+        return random_bivariate_generalized_gaussian(
+            rng, kernel_size, sigma_x_range, sigma_y_range, rotation_range,
+            betag_range, noise_range=noise_range, isotropic=False)
+    if kernel_type == "plateau_iso":
+        return random_bivariate_plateau(
+            rng, kernel_size, sigma_x_range, sigma_y_range, rotation_range,
+            betap_range, noise_range=None, isotropic=True)
+    if kernel_type == "plateau_aniso":
+        return random_bivariate_plateau(
+            rng, kernel_size, sigma_x_range, sigma_y_range, rotation_range,
+            betap_range, noise_range=None, isotropic=False)
+    raise ValueError(f"unknown kernel type {kernel_type!r}")
+
+
+def random_mixed_kernel(
+    rng: np.random.Generator,
+    kernel_size: int = 41,
+    sigma_range: Tuple[float, float] = (0.6, 10.0),
+    isotropic_prob: float = 0.5,
+) -> np.ndarray:
+    """Back-compat shorthand for the GFPGAN iso/aniso 50/50 configuration
+    (dataset_face.py:16-17)."""
+    iso = rng.uniform() < isotropic_prob
+    sig_x = rng.uniform(*sigma_range)
+    if iso:
+        return bivariate_gaussian(kernel_size, sig_x, sig_x, 0.0, True)
+    sig_y = rng.uniform(sigma_range[0], sig_x)
+    theta = rng.uniform(-np.pi, np.pi)
+    return bivariate_gaussian(kernel_size, sig_x, sig_y, theta, False)
+
 
 # ---------------------------------------------------------------------------
 # image-space ops
@@ -105,15 +307,94 @@ def rgb_to_gray(img: np.ndarray) -> np.ndarray:
             + img[..., 2] * 0.114).astype(img.dtype)
 
 
-def random_add_gaussian_noise(img: np.ndarray,
-                              rng: np.random.Generator) -> np.ndarray:
-    """degradations.py:420-459, 516-534 as the chain runs it: colour noise
-    with sigma drawn from ``NOISE_RANGE``, clipped to [0, 1], not rounded.
-    img [H,W,C] in [0, 1]."""
-    sigma = rng.uniform(*NOISE_RANGE)
-    rng.uniform()  # the gray-noise draw; its probability is 0
-    noise = rng.standard_normal(img.shape).astype(np.float32) * (sigma / 255.0)
-    return np.clip(img + noise, 0, 1)
+def _round_clip(out: np.ndarray, clip: bool, rounds: bool) -> np.ndarray:
+    """The reference's clip/rounds postprocess grid (degradations.py:451-458)."""
+    if clip and rounds:
+        return np.clip((out * 255.0).round(), 0, 255) / 255.0
+    if clip:
+        return np.clip(out, 0, 1)
+    if rounds:
+        return (out * 255.0).round() / 255.0
+    return out
+
+
+# ----------------------------- Gaussian noise ------------------------------
+
+
+def generate_gaussian_noise(img: np.ndarray, rng: np.random.Generator,
+                            sigma: float = 10.0,
+                            gray_noise: bool = False) -> np.ndarray:
+    """degradations.py:420-436. sigma measured in 0..255 range."""
+    if gray_noise:
+        noise = rng.standard_normal(img.shape[:2]).astype(np.float32)
+        noise = np.repeat(noise[:, :, None], img.shape[2], axis=2)
+    else:
+        noise = rng.standard_normal(img.shape).astype(np.float32)
+    return noise * (sigma / 255.0)
+
+
+def add_gaussian_noise(img: np.ndarray, rng: np.random.Generator,
+                       sigma: float = 10.0, clip: bool = True,
+                       rounds: bool = False,
+                       gray: bool = False) -> np.ndarray:
+    """degradations.py:439-459. img [H,W,C] in [0, 1]."""
+    out = img + generate_gaussian_noise(img, rng, sigma, gray)
+    return _round_clip(out, clip, rounds)
+
+
+def random_add_gaussian_noise(
+    img: np.ndarray, rng: np.random.Generator,
+    sigma_range: Tuple[float, float] = (0, 10.0), gray_prob: float = 0.0,
+    clip: bool = True, rounds: bool = False,
+) -> np.ndarray:
+    """degradations.py:516-534."""
+    sigma = rng.uniform(*sigma_range)
+    gray = rng.uniform() < gray_prob
+    return add_gaussian_noise(img, rng, sigma, clip, rounds, gray)
+
+
+# ------------------------------ Poisson noise ------------------------------
+
+
+def generate_poisson_noise(img: np.ndarray, rng: np.random.Generator,
+                           scale: float = 1.0,
+                           gray_noise: bool = False) -> np.ndarray:
+    """Shot noise: poisson-resample the image at its quantization depth
+    (degradations.py:560-584; skimage random_noise semantics). img [H,W,C]
+    in [0, 1]."""
+    if gray_noise:
+        img = rgb_to_gray(img)
+    img = np.clip((img * 255.0).round(), 0, 255) / 255.0
+    vals = len(np.unique(img))
+    vals = 2 ** np.ceil(np.log2(vals))
+    out = np.float32(rng.poisson(img * vals) / float(vals))
+    noise = out - img
+    if gray_noise:
+        noise = np.repeat(noise[:, :, np.newaxis], 3, axis=2)
+    return noise * scale
+
+
+def add_poisson_noise(img: np.ndarray, rng: np.random.Generator,
+                      scale: float = 1.0, clip: bool = True,
+                      rounds: bool = False,
+                      gray_noise: bool = False) -> np.ndarray:
+    """degradations.py:587-607."""
+    out = img + generate_poisson_noise(img, rng, scale, gray_noise)
+    return _round_clip(out, clip, rounds)
+
+
+def random_add_poisson_noise(
+    img: np.ndarray, rng: np.random.Generator,
+    scale_range: Tuple[float, float] = (0, 1.0), gray_prob: float = 0.0,
+    clip: bool = True, rounds: bool = False,
+) -> np.ndarray:
+    """degradations.py:686-706."""
+    scale = rng.uniform(*scale_range)
+    gray = rng.uniform() < gray_prob
+    return add_poisson_noise(img, rng, scale, clip, rounds, gray)
+
+
+# --------------------------------- JPEG ------------------------------------
 
 
 def add_jpg_compression(img: np.ndarray, quality: int = 90) -> np.ndarray:
@@ -128,6 +409,14 @@ def add_jpg_compression(img: np.ndarray, quality: int = 90) -> np.ndarray:
     )
     buf.seek(0)
     return np.asarray(Image.open(buf), np.float32) / 255.0
+
+
+def random_add_jpg_compression(
+    img: np.ndarray, rng: np.random.Generator,
+    quality_range: Tuple[float, float] = (90, 100),
+) -> np.ndarray:
+    """degradations.py:751-765."""
+    return add_jpg_compression(img, int(rng.uniform(*quality_range)))
 
 
 def resize_area(img: np.ndarray, out_hw: Tuple[int, int]) -> np.ndarray:
@@ -164,7 +453,13 @@ def resize_area(img: np.ndarray, out_hw: Tuple[int, int]) -> np.ndarray:
 def degrade(
     img: np.ndarray,
     rng: Optional[np.random.Generator] = None,
-    jpeg_range: Optional[Tuple[int, int]] = JPEG_RANGE,
+    blur_kernel_size: int = 41,
+    blur_sigma: Tuple[float, float] = (0.1, 10.0),
+    downsample_range: Tuple[float, float] = (0.8, 8.0),
+    noise_range: Optional[Tuple[float, float]] = (0.0, 20.0),
+    jpeg_range: Optional[Tuple[int, int]] = (60, 100),
+    kernel_list: Sequence[str] = ("iso", "aniso"),
+    kernel_prob: Sequence[float] = (0.5, 0.5),
 ) -> np.ndarray:
     """The BFR degradation chain (dataset_face.py:46-71 degrade_process /
     GFPGAN ffhq_degradation_dataset.py:160-190): mixed-kernel blur ->
@@ -172,34 +467,60 @@ def degrade(
     img [H,W,3] in [0, 1]."""
     rng = rng or np.random.default_rng(0)
     h, w = img.shape[:2]
-    lq = filter2d(img, random_mixed_kernels(rng))
-    scale = rng.uniform(*DOWNSAMPLE_RANGE)
+    kernel = random_mixed_kernels(
+        rng, kernel_list, kernel_prob, blur_kernel_size,
+        blur_sigma, blur_sigma, (-np.pi, np.pi))
+    lq = filter2d(img, kernel)
+    scale = rng.uniform(*downsample_range)
     lq = resize_area(lq, (max(int(h // scale), 8), max(int(w // scale), 8)))
-    lq = random_add_gaussian_noise(lq, rng)
-    if jpeg_range is not None:  # degradations.py:751-765
-        lq = add_jpg_compression(lq, int(rng.uniform(*jpeg_range)))
+    if noise_range is not None:
+        lq = random_add_gaussian_noise(lq, rng, noise_range)
+    if jpeg_range is not None:
+        lq = random_add_jpg_compression(lq, rng, jpeg_range)
     lq = np.clip((lq * 255.0).round(), 0, 255) / 255.0
     return resize_area(lq, (h, w))
 
 
 class GFPGANDegrader:
     """dataset_face.py:14-71 GFPGAN_degradation: the full per-image GT+LQ
-    synthesis — random hflip, random grayscale, then the ``degrade`` chain.
-    Returns (img_gt, img_lq), both [H,W,3] in [0,1] RGB (the GT itself is
-    modified by flip/grayscale, so both are returned, matching
-    degrade_process)."""
+    synthesis — random hflip, color jitter, random grayscale, then the
+    ``degrade`` chain. Returns (img_gt, img_lq), both [H,W,3] in [0,1] RGB
+    (the GT itself is modified by flip/jitter/grayscale, so both are
+    returned, matching degrade_process)."""
 
-    def __init__(self, jpeg_range: Optional[Tuple[int, int]] = JPEG_RANGE):
+    def __init__(self, kernel_list=("iso", "aniso"), kernel_prob=(0.5, 0.5),
+                 blur_kernel_size: int = 41,
+                 blur_sigma: Tuple[float, float] = (0.1, 10.0),
+                 downsample_range: Tuple[float, float] = (0.8, 8.0),
+                 noise_range: Optional[Tuple[float, float]] = (0.0, 20.0),
+                 jpeg_range: Optional[Tuple[int, int]] = (60, 100),
+                 gray_prob: float = 0.2, color_jitter_prob: float = 0.0,
+                 shift: float = 20.0 / 255.0):
+        self.kernel_list = tuple(kernel_list)
+        self.kernel_prob = tuple(kernel_prob)
+        self.blur_kernel_size = blur_kernel_size
+        self.blur_sigma = blur_sigma
+        self.downsample_range = downsample_range
+        self.noise_range = noise_range
         self.jpeg_range = jpeg_range
+        self.gray_prob = gray_prob
+        self.color_jitter_prob = color_jitter_prob
+        self.shift = shift
 
     def __call__(self, img_gt: np.ndarray, rng: np.random.Generator):
         if rng.uniform() < 0.5:  # random hflip (dataset_face.py:29-30)
             img_gt = img_gt[:, ::-1]
-        rng.uniform()  # the colour-jitter draw (:34-37); its probability is 0
-        if rng.uniform() < GRAY_PROB:  # :40-42
+        if rng.uniform() < self.color_jitter_prob:  # :34-37
+            jitter = rng.uniform(-self.shift, self.shift, 3).astype(np.float32)
+            img_gt = np.clip(img_gt + jitter, 0, 1)
+        if rng.uniform() < self.gray_prob:  # :40-42
             img_gt = np.tile(rgb_to_gray(img_gt)[:, :, None], (1, 1, 3))
         img_gt = np.ascontiguousarray(img_gt, np.float32)
-        return img_gt, degrade(img_gt, rng, self.jpeg_range)
+        img_lq = degrade(
+            img_gt, rng, self.blur_kernel_size, self.blur_sigma,
+            self.downsample_range, self.noise_range, self.jpeg_range,
+            self.kernel_list, self.kernel_prob)
+        return img_gt, img_lq
 
 
 def face_batches(images_u8: np.ndarray, batch_size: int,

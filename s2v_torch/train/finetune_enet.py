@@ -102,16 +102,23 @@ def finetune(enet: nn.Module, batches: Iterable[Dict[str, np.ndarray]], cfg, dev
     every 10 steps and at the last (s2v_tpu's logs no last line, so a run
     of fewer than 10 steps leaves no log there), and a checkpoint every ``cfg.checkpoint_every`` epochs
     when ``checkpoint_dir`` is given. With a ``mesh`` every rank takes its
-    shard of each batch (each batch's size divides the data axis); the log
-    line counts the global batch, and only the leader logs and checkpoints."""
+    shard of each batch; the log line counts the global batch, and only the
+    leader logs and checkpoints. A batch whose size the data axis does not
+    divide raises ``ValueError`` before any step, as the JAX step's
+    sharding refuses it."""
     from s2v_torch.utils.checkpoint import TrainCheckpointer
     from s2v_torch.utils.diagnostics import ThroughputLogger
 
+    group = data_group(mesh)
+    n_ranks, rank = group_size(group), 0 if group is None else torch.distributed.get_rank(group)
+    batches = list(batches)
+    for i, b in enumerate(batches):
+        if len(b["mel"]) % n_ranks:
+            raise ValueError(f"batch {i} holds {len(b['mel'])} frames, which the data axis "
+                             f"of size {n_ranks} does not divide")
     state, step_fn = make_enet_finetune_step(enet, cfg, device, id_embed_fn=id_embed_fn,
                                              vgg=vgg, mesh=mesh)
     dev = next(enet.parameters()).device
-    group = data_group(mesh)
-    n_ranks, rank = group_size(group), 0 if group is None else torch.distributed.get_rank(group)
     batches = [{k: torch.as_tensor(b[k], device=dev).chunk(n_ranks)[rank] for k in BATCH_KEYS}
                for b in batches]
     leader = is_leader()  # one log and one checkpoint for the whole group

@@ -216,8 +216,10 @@ def _gpen_styledconv(d, prefix: str, sd: StateDict) -> None:
 
 
 def gpen_from_jax(variables) -> StateDict:
-    """s2v_tpu FullGenerator variables -> FullGenerator state_dict,
-    including the blur FIR buffers the reference registers."""
+    """s2v_tpu FullGenerator or FullGeneratorSR variables -> the port
+    module's state_dict (the reference FullGenerator / FullGenerator_SR
+    layout: the encoder's depth is read from the tree), including the blur
+    FIR buffers the reference registers."""
     p = variables["params"]
     sd: StateDict = {}
     blur = _t(make_kernel(BLUR_TAPS))
@@ -513,6 +515,20 @@ def gfpgan_clean_from_jax(variables) -> StateDict:
     for i in range(2 * n + 1):
         res = 2 ** ((i + 5) // 2)
         sd[f"{pre}.noises.noise{i}"] = torch.zeros(1, 1, res, res)
+    return sd
+
+
+def syncnet_from_jax(variables) -> StateDict:
+    """s2v_tpu SyncNet variables -> wav2lip SyncNet_color's key names
+    (``face_encoder.{i}`` / ``audio_encoder.{i}.conv_block.{0 conv, 1 BN}``),
+    the inverse of ``convert_syncnet``."""
+    p, s = variables["params"], variables["batch_stats"]
+    sd: StateDict = {}
+    for enc, n, name in (("face_encoder", 15, "face"), ("audio_encoder", 14, "audio")):
+        for i in range(n):
+            blk = f"{enc}.{i}.conv_block"
+            _conv(p[f"{name}{i}"]["conv"], f"{blk}.0", sd)
+            _bn(p[f"{name}{i}"]["bn"], s[f"{name}{i}"]["bn"], f"{blk}.1", sd)
     return sd
 
 

@@ -21,10 +21,24 @@ converters fix (LNet's 9 decoder blocks, ParseNet's 10, RRDBNet's 23, the
   GFPGAN is a GFPGANv1.pth (the original arch, slim at out_size 512: the
   depth ``convert_gfpgan_v1`` fixes) or that holds a GANimation file
   loads them as s2v_tpu's ``load_models`` does (the same trees).
-- ``main(["infer", ...], device="cpu")`` writes the output file. The
-  GPEN-BFR-2048 file is left out of that run: its final stage at 2048^2
-  costs over a minute on the CPU (the smoke runs it on the card).
+- ``main(["infer", ...], device="cpu")`` writes the output file (one run
+  on a 4-frame 192^2 clip, shared by the module). The GPEN-BFR-2048 file is
+  left out of that run: its final stage at 2048^2 costs over a minute on
+  the CPU (the smoke runs it on the card).
+- ``--parallel.infer_mesh true`` with ``--parallel.data_parallel 2`` (two
+  CPU replicas) on the same files and clip, against that plain run and
+  the JAX package's ``main`` with the mesh on its 8 virtual CPU devices laid
+  out as data 4 x model 2 (so that every 4-frame chunk splits over the
+  data axis), f32. The frames agree within one gray level (at most 0.1% of
+  subpixels off by more than 1, mean under 0.01, none off by more than 1
+  against the port's own run; measured against JAX: none off by more than
+  1, mean 1.2e-4), and the pipeline and every hook the command built hold
+  its mesh.
 - ``find-audio`` picks the same file at the same distance as s2v_tpu's.
+
+The port's runs use one torch thread (``torch_parity.one_torch_thread``):
+under the suite's six workers torch's thread per core oversubscribes the
+machine.
 """
 
 import functools
@@ -55,6 +69,8 @@ from s2v_torch.utils.weights import load_torch_checkpoint
 from s2v_tpu import cli as j_cli
 from s2v_tpu.utils import weights as JW
 from test_torch_models import assert_same_tree, numpy_sd
+from test_torch_pipeline import assert_close_frames
+from torch_parity import one_torch_thread
 
 LM3D = np.asarray([[-0.3, 0.2, 0.1], [0.3, 0.2, 0.1], [0.0, 0.0, 0.3],
                    [-0.2, -0.3, 0.1], [0.2, -0.3, 0.1]], np.float64)
@@ -339,25 +355,83 @@ def write_wav(path, f0, n=4000):
     return str(path)
 
 
-def test_infer_end_to_end_on_the_cpu(ckpt, tmp_path):
-    root = subset(ckpt, tmp_path / "ckpt", without=("GPEN-BFR-2048.pth",))
+def recording_pipelines(built):
+    """``LipSyncPipeline.__init__`` that also appends each pipeline to
+    ``built`` (patched around a ``main`` call)."""
+    real = t_inf.LipSyncPipeline.__init__
+
+    def record(self, *a, **k):
+        real(self, *a, **k)
+        built.append(self)
+
+    return real, record
+
+
+@pytest.fixture(scope="module")
+def plain_infer(ckpt, tmp_path_factory):
+    """One ``main(["infer", ...], device="cpu")`` without GPEN-BFR-2048 on a
+    4-frame 192^2 clip with 4 outputs; its argv, output path, tmp dir and
+    the pipeline it built."""
+    work = tmp_path_factory.mktemp("infer")
+    root = subset(ckpt, work / "ckpt", without=("GPEN-BFR-2048.pth",))
     rng = np.random.RandomState(41)
     yy, xx = np.mgrid[0:192, 0:192]
     base = np.stack([xx * 255.0 / 192, yy * 255.0 / 192, (xx + yy) * 127.0 / 384], -1)
     frames = np.clip(base[None] + rng.randn(4, 192, 192, 3) * 30, 0, 255).astype(np.uint8)
-    np.savez(tmp_path / "clip.npz", frames=frames, fps=25.0)
-    audio = write_wav(tmp_path / "speech.wav", 200, n=4800)
-    out = t_cli.main(["infer", "--face", str(tmp_path / "clip.npz"), "--audio", audio,
-                      "--outfile", str(tmp_path / "out" / "result.npz"), "--checkpoint_dir", root,
-                      "--tmp_dir", str(tmp_path / "tmp"), "--model.dtype", "float32"],
-                     device="cpu")
-    assert out == str(tmp_path / "out" / "result.npz")
-    data = np.load(out)
-    mel = melspectrogram(torch.from_numpy(load_wav(audio)))
+    np.savez(work / "clip.npz", frames=frames, fps=25.0)
+    audio = write_wav(work / "speech.wav", 200, n=4400)  # 4 outputs
+    argv = ["infer", "--face", str(work / "clip.npz"), "--audio", audio,
+            "--checkpoint_dir", root, "--model.dtype", "float32"]
+    built = []
+    real, record = recording_pipelines(built)
+    try:
+        t_inf.LipSyncPipeline.__init__ = record
+        with one_torch_thread():
+            out = t_cli.main(argv + ["--outfile", str(work / "out" / "result.npz"),
+                                     "--tmp_dir", str(work / "tmp")], device="cpu")
+    finally:
+        t_inf.LipSyncPipeline.__init__ = real
+    return dict(work=work, argv=argv, audio=audio, out=out, pipeline=built[0])
+
+
+def test_infer_end_to_end_on_the_cpu(plain_infer):
+    work = plain_infer["work"]
+    assert plain_infer["out"] == str(work / "out" / "result.npz")
+    data = np.load(plain_infer["out"])
+    mel = melspectrogram(torch.from_numpy(load_wav(plain_infer["audio"])))
     n = num_mel_chunks(mel.shape[1], 25.0)
     assert data["frames"].shape == (n, 192, 192, 3) and data["frames"].dtype == np.uint8
     assert float(data["fps"]) == 25.0 and data["frames"].std() > 1.0
-    assert len([f for f in os.listdir(tmp_path / "tmp") if f.startswith("clip_")]) == 5
+    assert len([f for f in os.listdir(work / "tmp") if f.startswith("clip_")]) == 5
+
+
+def test_infer_mesh_matches_the_plain_run_and_jax(plain_infer, tmp_path):
+    argv, mesh_flags = plain_infer["argv"], ["--parallel.infer_mesh", "true"]
+    j_cli.main(argv + ["--outfile", str(tmp_path / "jax.npz"), "--tmp_dir",
+                       str(tmp_path / "jax"), *mesh_flags, "--parallel.data_parallel", "4",
+                       "--parallel.model_parallel", "2"])
+    want = np.load(tmp_path / "jax.npz")["frames"]
+    single = np.load(plain_infer["out"])["frames"]
+    built = []
+    real, record = recording_pipelines(built)
+    try:
+        t_inf.LipSyncPipeline.__init__ = record
+        with one_torch_thread():
+            mesh = np.load(t_cli.main(argv + ["--outfile", str(tmp_path / "mesh.npz"),
+                                              "--tmp_dir", str(tmp_path / "mesh"), *mesh_flags,
+                                              "--parallel.data_parallel", "2"],
+                                      device="cpu"))["frames"]
+    finally:
+        t_inf.LipSyncPipeline.__init__ = real
+    plain, (meshed,) = plain_infer["pipeline"], built
+    assert plain.mesh is None and meshed.mesh.shape == {"data": 2, "model": 1}
+    m = meshed.models
+    assert all(h.mesh is meshed.mesh for h in (m.ref_enhancer.enhancer,
+                                               m.mouth_restorer.restorer))
+    assert mesh.shape == single.shape == want.shape == (4, 192, 192, 3)
+    assert_close_frames(mesh, single)
+    assert np.abs(mesh.astype(np.int32) - single.astype(np.int32)).max() <= 1
+    assert_close_frames(mesh, want)
 
 
 def test_find_audio_matches_jax(tmp_path, capsys):

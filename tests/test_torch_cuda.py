@@ -680,3 +680,62 @@ def test_mouth_hook_with_gfpgan_v1_on_the_card_matches_the_cpu(card, approx_warp
     assert (d > 1).float().mean().item() <= 1e-3 and d.mean().item() < 0.01
     change = (out["cpu"][:, 18:80, 26:86].int() - frames[:, 18:80, 26:86].int()).abs()
     assert change.float().mean().item() > 5.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("deterministic", [True, False])
+def test_full_generator_sr_on_the_card_matches_the_cpu(card, deterministic):
+    """FullGeneratorSR 64 -> 256 (slim), its K1 and K3 sites on the kernels,
+    f32 without TF32: within 1e-4 of the output's scale with zeros for the
+    upper levels' features; with their noise drawn from a generator on the
+    card, two draws from one seed agree within 1e-4 of scale (cuDNN's convs
+    are not bit-reproducible from call to call) and differ from the
+    zero-noise output. One forward launches ``kernel_sites`` kernels."""
+    from s2v_torch.models.gpen import FullGeneratorSR
+    from s2v_torch.ops.kernels import reset_launch_counts
+    from s2v_torch.train.gan import kernel_sites
+
+    torch.manual_seed(18)
+    model = FullGeneratorSR(in_size=64, out_size=256, style_dim=64, n_mlp=2,
+                            channel_multiplier=0.5, narrow=0.25).eval()
+    with torch.no_grad():  # noise strengths start at 0: give the noise an effect
+        for name, p in model.named_parameters():
+            if name.endswith("noise.weight"):
+                p.fill_(0.1)
+    x = torch.rand(2, 3, 64, 64) * 2 - 1
+    with torch.no_grad():
+        want = model(x)
+        model.to(card)
+        reset_launch_counts()
+        if deterministic:
+            got = model(x.to(card))
+        else:
+            got = model(x.to(card), deterministic=False,
+                        generator=torch.Generator(card).manual_seed(3))
+            again = model(x.to(card), deterministic=False,
+                          generator=torch.Generator(card).manual_seed(3))
+            assert (got - again).abs().max().item() <= 1e-4 * max(1.0, got.abs().max().item())
+        counts = launch_counts()
+    k1, k3 = kernel_sites(model)
+    calls = 1 if deterministic else 2
+    assert counts == {"fused_act": calls * k1, "fused_act_bwd": 0, "upfirdn2d": calls * k3}
+    if deterministic:
+        assert (got.cpu() - want).abs().max().item() <= 1e-4 * max(1.0, want.abs().max().item())
+    else:
+        assert (got.cpu() - want).abs().max().item() > 1e-3  # the noise took effect
+
+
+@pytest.mark.cuda
+def test_tile_process_on_the_card_matches_the_cpu(card):
+    """``tile_process`` over a slim RRDBNet x2 on a 70x50 frame, tile 32,
+    pad 4, f32: within 1e-4 of the CPU."""
+    from s2v_torch.models.rrdbnet import RRDBNet, tile_process
+
+    torch.manual_seed(19)
+    model = RRDBNet(scale=2, num_feat=16, num_block=2, num_grow_ch=8).eval()
+    x = torch.rand(1, 3, 70, 50)
+    with torch.no_grad():
+        want = tile_process(model, x, 2, tile_size=32, tile_pad=4)
+        got = tile_process(model.to(card), x.to(card), 2, tile_size=32, tile_pad=4)
+    assert got.shape == want.shape == (1, 3, 140, 100)
+    assert (got.cpu() - want).abs().max().item() <= 1e-4

@@ -27,7 +27,15 @@ from s2v_tpu.models import fan as j_fan
 from s2v_tpu.models import s3fd as j_s3fd
 from s2v_tpu.utils import weights as JW
 from test_torch_models import assert_same_tree, close, load, numpy_sd, to_nchw
-from torch_parity import random_variables
+from torch_parity import one_torch_thread, random_variables
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """torch on one thread for the module, its fixtures included
+    (``torch_parity.one_torch_thread``)."""
+    with one_torch_thread():
+        yield
 
 
 @pytest.fixture(scope="module")

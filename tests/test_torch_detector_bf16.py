@@ -52,7 +52,7 @@ from test_torch_restoration import tail_frames
 from torch_parity import one_torch_thread, random_variables
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(scope="module", autouse=True)
 def _one_torch_thread():
     with one_torch_thread():
         yield

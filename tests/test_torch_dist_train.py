@@ -28,7 +28,8 @@ first within rtol 1e-4 of the JAX step run with its batch sharded over a
 2-device mesh; the trained parameters within 1e-5 relative L2 of the
 single-process ones after each step and bit-equal on both ranks; and
 ``finetune(mesh=...)``'s epoch loop over the global batch (each rank
-taking its shard) bit-equal to those two steps.
+taking its shard) bit-equal to those two steps, and refusing a batch of 3,
+which two ranks cannot split evenly, before any step.
 """
 
 import numpy as np
@@ -55,6 +56,14 @@ from test_torch_models import ENET_KW, load
 from test_torch_train import D_KW, G_KW, SIZE
 from torch_parity import one_torch_thread, random_variables
 import torch_dist_ranks
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """torch on one thread for the module, its fixtures included
+    (``torch_parity.one_torch_thread``)."""
+    with one_torch_thread():
+        yield
 
 
 def rel_l2(a, b):
@@ -158,3 +167,10 @@ def test_enet_steps_match_the_full_batch_and_jax(runs):
         for key, value in runs["jax_enet_metrics"].items():
             np.testing.assert_allclose(enet["steps"][0]["metrics"][key], value, rtol=1e-4,
                                        err_msg=key)
+
+
+def test_finetune_refuses_a_batch_the_data_axis_does_not_divide(runs):
+    for r in runs["ranks"]:
+        msg = r["enet"]["odd_batch"]
+        assert msg is not None, "finetune ran a batch of 3 on two ranks"
+        assert "3 frames" in msg and "size 2" in msg, msg

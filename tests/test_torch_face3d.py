@@ -36,10 +36,18 @@ from s2v_tpu.pipeline import utils as j_utils
 from s2v_tpu.utils import weights as JW
 from test_pipeline_e2e import synthetic_landmarks
 from test_torch_models import assert_same_tree, close, load, numpy_sd, to_nchw
-from torch_parity import random_variables
+from torch_parity import one_torch_thread, random_variables
 
 RECON_KW = dict(layers=(1, 1, 1, 1), base_planes=8)
 DNET_KW = dict(descriptor_nc=16, warp_base_nc=8, edit_base_nc=8, max_nc=32)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """torch on one thread for the module, its fixtures included
+    (``torch_parity.one_torch_thread``)."""
+    with one_torch_thread():
+        yield
 
 
 def test_recon_net_matches_jax_and_roundtrips():

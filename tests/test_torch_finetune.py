@@ -37,7 +37,15 @@ from s2v_tpu.train import data as JD
 from s2v_tpu.train import losses as JL
 from s2v_tpu.utils.config import PipelineConfig, override
 from test_torch_models import ENET_KW, load, to_nchw
-from torch_parity import fixed_landmarks, random_variables
+from torch_parity import fixed_landmarks, one_torch_thread, random_variables
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """torch on one thread for the module, its fixtures included
+    (``torch_parity.one_torch_thread``)."""
+    with one_torch_thread():
+        yield
 
 
 @pytest.mark.parametrize("name", ["l1_loss", "perceptual_stub", "laplacian_pyramid",

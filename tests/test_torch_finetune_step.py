@@ -17,6 +17,7 @@ its own JAX program (some 20 s), so the VGG16 + identity variant has a file
 of its own, test_torch_finetune_vgg_step.py.
 """
 
+import pytest
 import numpy as np
 import optax
 import torch
@@ -38,9 +39,17 @@ from s2v_tpu.train import losses as JL
 from s2v_tpu.train.finetune import style_conv_mask
 from s2v_tpu.utils.config import TrainConfig
 from test_torch_models import ENET_KW, load
-from torch_parity import random_variables
+from torch_parity import one_torch_thread, random_variables
 
 RECON_KW = dict(layers=(1, 1, 1, 1), base_planes=8)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """torch on one thread for the module, its fixtures included
+    (``torch_parity.one_torch_thread``)."""
+    with one_torch_thread():
+        yield
 
 
 def _step_inputs(seed=3):

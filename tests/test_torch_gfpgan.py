@@ -24,11 +24,19 @@ from s2v_tpu.models.gfpgan import GFPGANv1Clean
 from s2v_tpu.utils import weights as JW
 from slim_zoo import SLIM_GFPGAN_KW
 from test_torch_models import assert_same_tree, close, load, numpy_sd, to_nchw
-from torch_parity import random_variables
+from torch_parity import one_torch_thread, random_variables
 
 WIDE = dict(num_style_feat=128, channel_multiplier=2, narrow=1, num_mlp=4)
 MERGED = dict(num_style_feat=128, channel_multiplier=2, narrow=0.5, num_mlp=4)
 GEOMETRIES = {"slim64": (64, SLIM_GFPGAN_KW), "wide64": (64, WIDE), "merged128": (128, MERGED)}
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """torch on one thread for the module, its fixtures included
+    (``torch_parity.one_torch_thread``)."""
+    with one_torch_thread():
+        yield
 
 
 def jax_vars(size, kw, seed=20):

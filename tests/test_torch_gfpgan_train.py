@@ -50,11 +50,19 @@ from s2v_tpu.train.losses import perceptual_stub as j_stub
 from slim_zoo import SLIM_GFPGAN_KW
 from test_torch_gfpgan import jax_vars
 from test_torch_models import close, load, to_nchw
-from torch_parity import random_variables
+from torch_parity import one_torch_thread, random_variables
 
 SIZE = 32
 D_KW = dict(size=SIZE, channel_multiplier=1, narrow=0.25)
 ROIS = {"left_eye": 16, "right_eye": 16, "mouth": 24}
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """torch on one thread for the module, its fixtures included
+    (``torch_parity.one_torch_thread``)."""
+    with one_torch_thread():
+        yield
 
 
 def _t(a):

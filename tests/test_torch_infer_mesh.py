@@ -16,7 +16,7 @@ CPU mesh (tests/test_pipeline_sharded.py), f32.
   detecting, and with landmarks) on a 2-entry mesh equals its
   single-device run to the same rule.
 
-The ``infer`` command on a mesh: tests/test_torch_infer_mesh_cli.py.
+The ``infer`` command on a mesh: tests/test_torch_cli.py.
 """
 
 import numpy as np
@@ -51,7 +51,7 @@ N = 8
 DNET_KW = dict(descriptor_nc=16, warp_base_nc=8, edit_base_nc=8, max_nc=32)
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(scope="module", autouse=True)
 def _one_thread():
     with one_torch_thread():
         yield

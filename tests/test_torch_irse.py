@@ -20,7 +20,15 @@ from s2v_tpu.models import irse as JI
 from s2v_tpu.utils.weights import convert_irse
 from test_torch_models import assert_same_tree, load, numpy_sd, to_nchw
 from test_torch_vgg import assert_grad_close, nhwc
-from torch_parity import random_variables
+from torch_parity import one_torch_thread, random_variables
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """torch on one thread for the module, its fixtures included
+    (``torch_parity.one_torch_thread``)."""
+    with one_torch_thread():
+        yield
 
 
 def irse_variables(mode, seed=12):

@@ -33,7 +33,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
 def test_port_sources_import_pillow_only_for_the_jpeg_degradation():
     """Every import statement of the package, function-level ones included:
     Pillow appears only inside the training data chain's JPEG step, which
-    ``jpeg_range=None`` skips (the inference path, the 3DMM alignment
+    ``jpeg_range=None`` skips, and in the ArcFace data's JPEG decode and
+    synthetic-pack writer (the inference path, the 3DMM alignment
     included, has none)."""
     found = []
     for path in (REPO / "s2v_torch").rglob("*.py"):
@@ -45,7 +46,9 @@ def test_port_sources_import_pillow_only_for_the_jpeg_degradation():
                     else [n.module or ""] if isinstance(n, ast.ImportFrom) else [])
             if any(m.split(".")[0] == "PIL" for m in mods):
                 found.append((path.relative_to(REPO).as_posix(), owner.get(id(n))))
-    assert set(found) == {("s2v_torch/prep/degradations.py", "add_jpg_compression")}, found
+    assert set(found) == {("s2v_torch/prep/degradations.py", "add_jpg_compression"),
+                          ("s2v_torch/train/arcface_data.py", "__getitem__"),
+                          ("s2v_torch/train/arcface_data.py", "write_synthetic_pack")}, found
 
 
 def test_chip_smoke_imports_neither_jax_nor_the_jax_package():

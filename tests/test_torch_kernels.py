@@ -28,8 +28,17 @@ from s2v_tpu.ops.pallas.fused_act import (fused_bias_leaky_relu as fused_pallas,
                                           fused_bias_leaky_relu_ref)
 from s2v_tpu.ops.pallas.upfirdn2d import upfirdn2d_pallas, upfirdn2d_ref
 from test_torch_cuda import CASES, blur_kernel
+from torch_parity import one_torch_thread
 
 ATOL = 1e-5  # f32, same arithmetic up to summation order
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """torch on one thread for the module, its fixtures included
+    (``torch_parity.one_torch_thread``)."""
+    with one_torch_thread():
+        yield
 
 
 def _nchw(x_nhwc):

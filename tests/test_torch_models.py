@@ -39,7 +39,7 @@ from s2v_tpu.models.gpen import ConvLayer, Discriminator, FullGenerator
 from s2v_tpu.models.parsenet import ParseNet
 from s2v_tpu.models.rrdbnet import RRDBNet
 from s2v_tpu.utils import weights as JW
-from torch_parity import random_variables
+from torch_parity import one_torch_thread, random_variables
 
 ENET_KW = dict(lnet_res_blocks=2, channel_multiplier=0.25, narrow=0.25,
                lnet_base_nc=8, lnet_max_nc=32)
@@ -47,6 +47,14 @@ GPEN_KW = dict(size=64, narrow=0.25, channel_multiplier=0.5, style_dim=64, n_mlp
 DISC_KW = dict(size=64, narrow=0.25, channel_multiplier=0.5)
 PARSE_KW = dict(base_ch=16, max_ch=32, min_ch=8, res_depth=2)
 RRDB_KW = dict(scale=2, num_feat=16, num_block=2, num_grow_ch=8)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """torch on one thread for the module, its fixtures included
+    (``torch_parity.one_torch_thread``)."""
+    with one_torch_thread():
+        yield
 
 
 def close(got, want):

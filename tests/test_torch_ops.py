@@ -18,9 +18,18 @@ from s2v_tpu.models.fan import lm68_to_lm5 as j_lm68_to_lm5
 from s2v_tpu.models.s3fd import pad_and_smooth_boxes as j_pad_smooth
 from s2v_tpu.ops import convs as j_convs, image as j_image, norms as j_norms, warp as j_warp
 from s2v_tpu.pipeline import align as j_align, enhance as j_enh, utils as j_utils
+from torch_parity import one_torch_thread
 
 RNG = np.random.RandomState(5)
 ATOL = 1e-4  # f32 on values in [0, 255] or O(1); matmul vs interpolation order
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """torch on one thread for the module, its fixtures included
+    (``torch_parity.one_torch_thread``)."""
+    with one_torch_thread():
+        yield
 
 
 def nchw(x):

@@ -37,8 +37,17 @@ from s2v_tpu.parallel import halo as JH
 from s2v_tpu.parallel.mesh import MODEL_AXIS, make_mesh, shard_frames
 from s2v_tpu.parallel.partial_fc import make_sharded_classifier, partial_fc_loss
 import torch_dist_ranks
+from torch_parity import one_torch_thread
 
 RNG = np.random.RandomState(3)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """torch on one thread for the module, its fixtures included
+    (``torch_parity.one_torch_thread``)."""
+    with one_torch_thread():
+        yield
 
 
 def test_make_mesh_shapes():

@@ -37,7 +37,7 @@ from s2v_tpu.models.rrdbnet import RRDBNet
 from s2v_tpu.pipeline.enhance import FaceEnhancer
 from s2v_tpu.pipeline.inference import LipSyncPipeline, PipelineModels
 from s2v_tpu.utils.config import PipelineConfig, override
-from torch_parity import fixed_landmarks, random_variables
+from torch_parity import fixed_landmarks, one_torch_thread, random_variables
 
 N, H, W = 6, 96, 112
 IN_SIZE, PARSE = 64, 128
@@ -46,6 +46,14 @@ ENET_KW = dict(lnet_res_blocks=2, channel_multiplier=0.25, narrow=0.25,
 GPEN_KW = dict(size=IN_SIZE, narrow=0.25, channel_multiplier=0.5, style_dim=64, n_mlp=2)
 PARSE_KW = dict(base_ch=16, max_ch=32, min_ch=8, res_depth=2)
 RRDB_KW = dict(scale=2, num_feat=16, num_block=2, num_grow_ch=8)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """torch on one thread for the module, its fixtures included
+    (``torch_parity.one_torch_thread``)."""
+    with one_torch_thread():
+        yield
 
 
 def slice_inputs(n=N, seconds=0.35):

@@ -68,7 +68,7 @@ from test_torch_step5 import weights as step5_weights  # noqa: F401 (a fixture)
 from torch_parity import fixed_landmarks, one_torch_thread, random_variables
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(scope="module", autouse=True)
 def _one_torch_thread():
     with one_torch_thread():
         yield

@@ -29,11 +29,19 @@ from s2v_torch.utils import weights as TW
 from s2v_tpu.models import retinaface as j_rf
 from s2v_tpu.utils import weights as JW
 from test_torch_models import assert_same_tree, close, load, numpy_sd, to_nchw
-from torch_parity import random_variables
+from torch_parity import one_torch_thread, random_variables
 
 CFGS = {"re50": (j_rf.RetinaFace, t_rf.RetinaFace, JW.convert_retinaface, (64, 96), 60),
         "mnet": (j_rf.retinaface_mnet, t_rf.retinaface_mnet, JW.convert_retinaface_mnet,
                  (96, 64), 61)}
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """torch on one thread for the module, its fixtures included
+    (``torch_parity.one_torch_thread``)."""
+    with one_torch_thread():
+        yield
 
 
 @pytest.fixture(scope="module", params=list(CFGS))

@@ -31,9 +31,17 @@ from s2v_tpu.pipeline import inference as j_inf
 from s2v_tpu.utils.config import override
 from test_torch_pipeline import assert_close_frames
 from test_torch_steps import clip, jax_fan_one_module, pipes  # noqa: F401 (a fixture)
-from torch_parity import fixed_landmarks
+from torch_parity import fixed_landmarks, one_torch_thread
 
 STEPS = ("extract_landmarks", "ffhq_crop", "extract_coeffs", "stabilize")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """torch on one thread for the module, its fixtures included
+    (``torch_parity.one_torch_thread``)."""
+    with one_torch_thread():
+        yield
 
 
 def fixed_geometry(extract, calls):

@@ -59,11 +59,19 @@ from test_pipeline_e2e import synthetic_landmarks
 from test_torch_models import load
 from test_torch_pipeline import (ENET_KW, GPEN_KW, IN_SIZE, PARSE, PARSE_KW, RRDB_KW,
                                  assert_close_frames, slice_inputs)
-from torch_parity import random_variables
+from torch_parity import one_torch_thread, random_variables
 
 N = 4
 THRESHOLD_LOGIT = float(np.log(9.0))  # score 0.9
 FACE_BIAS = 4.0
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """torch on one thread for the module, its fixtures included
+    (``torch_parity.one_torch_thread``)."""
+    with one_torch_thread():
+        yield
 
 
 @pytest.fixture(scope="module")

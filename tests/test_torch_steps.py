@@ -54,13 +54,21 @@ from s2v_tpu.models.s3fd import S3FD
 from s2v_tpu.utils.config import PipelineConfig, override
 from test_torch_models import load
 from test_torch_pipeline import ENET_KW, PARSE_KW, RRDB_KW, assert_close_frames
-from torch_parity import fixed_landmarks, random_variables
+from torch_parity import fixed_landmarks, one_torch_thread, random_variables
 
 N, H, W = 4, 256, 256
 LM3D = np.asarray([[-0.3, 0.2, 0.1], [0.3, 0.2, 0.1], [0.0, 0.0, 0.3],
                    [-0.2, -0.3, 0.1], [0.2, -0.3, 0.1]], np.float64)
 RECON_KW = dict(layers=(1, 1, 1, 1), base_planes=8)
 DNET_KW = dict(descriptor_nc=16, warp_base_nc=8, edit_base_nc=8, max_nc=32)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """torch on one thread for the module, its fixtures included
+    (``torch_parity.one_torch_thread``)."""
+    with one_torch_thread():
+        yield
 
 
 def one_module_fan():

@@ -43,11 +43,19 @@ from s2v_torch.utils import weights as TW
 from s2v_tpu.models.gpen import Discriminator, FullGenerator
 from s2v_tpu.prep import degradations as JD
 from s2v_tpu.train import gan as JG
-from torch_parity import random_variables
+from torch_parity import one_torch_thread, random_variables
 
 SIZE = 32
 G_KW = dict(size=SIZE, style_dim=32, n_mlp=2, channel_multiplier=1, narrow=0.25)
 D_KW = dict(size=SIZE, channel_multiplier=1, narrow=0.25)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """torch on one thread for the module, its fixtures included
+    (``torch_parity.one_torch_thread``)."""
+    with one_torch_thread():
+        yield
 
 
 def _t(a):

@@ -32,6 +32,15 @@ from s2v_torch.train import finetune as TF
 from s2v_torch.utils.checkpoint import TrainCheckpointer
 from s2v_torch.utils.weights import load_reference, load_torch_checkpoint, merge_enet_lnet
 from test_torch_cli import LM3D, write_wav
+from torch_parity import one_torch_thread
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """torch on one thread for the module, its fixtures included
+    (``torch_parity.one_torch_thread``)."""
+    with one_torch_thread():
+        yield
 
 
 def enet_from_files(root):

@@ -23,7 +23,15 @@ from s2v_torch.models import vgg as TV
 from s2v_torch.utils import weights as TW
 from s2v_tpu.models import vgg as JV
 from test_torch_models import assert_same_tree, load, numpy_sd, to_nchw
-from torch_parity import random_variables
+from torch_parity import one_torch_thread, random_variables
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """torch on one thread for the module, its fixtures included
+    (``torch_parity.one_torch_thread``)."""
+    with one_torch_thread():
+        yield
 
 
 def nhwc(t):

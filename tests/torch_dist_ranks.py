@@ -188,6 +188,13 @@ def train_ranks(rank, world, refs):
                      device="cpu", mesh=mesh)
     out["enet"]["finetune"] = dict(steps=state.step, params={
         k: _np(p) for k, p in enet2.named_parameters() if p.requires_grad})
+    # a global batch of 3 that the two ranks cannot split evenly is refused
+    odd = {k: np.concatenate([v, v[:1]]) for k, v in refs["enet_batch"].items()}
+    try:
+        finetune(enet2, [odd], TrainConfig(lr=1e-3), device="cpu", mesh=mesh)
+        out["enet"]["odd_batch"] = None
+    except ValueError as e:
+        out["enet"]["odd_batch"] = str(e)
     return out
 
 
