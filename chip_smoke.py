@@ -131,9 +131,9 @@ result line:
    on the CPU from the same weights and batch; metrics and every parameter
    gradient must agree.
 11. train: GPEN-BFR-512 (FullGenerator and Discriminator at full width,
-   random weights from a fixed seed), batch 4 at 512^2 from
-   ``face_batches`` over 8 synthetic faces, step pairs 0-16 (R1 at 0 and
-   16), f32. The launch counts are reset just before and read just after;
+   random weights from a fixed seed), one batch of 4 at 512^2 from
+   ``face_batches`` over 8 synthetic faces for every step, step pairs 0-16
+   (R1 at 0 and 16), f32. The launch counts are reset just before and read just after;
    every step's K1, K2 and K3 launches must equal the counts that
    ``s2v_torch.train.gan.expected_train_launches`` derives from the models.
    Then one g_step under torch.profiler.
@@ -229,13 +229,50 @@ result line:
    RecordIO round trip and ``epoch_indices``; where Pillow imports,
    ``record_batches`` from a synthetic pack into two full ArcFace steps,
    else a line naming what was left out (``phase_metrics``).
+22. face3d reference: one slim ``make_face3d_train_step`` step (ReconNet
+   (1, 1, 1, 1) x16, a 3,000-vertex synthetic face, batch 4 at 224^2, a
+   slim IResNet identity term) on the card and on the CPU from the same
+   state and batch: metrics, every gradient (relative L2) and the new
+   running statistics within ``FACE3D_SLIM_TOL``; then ``rasterize`` on
+   both at full width (2 images of the synthetic BFM below), and held
+   against ``dense_rasterize``, an independent witness on the card that
+   evaluates s2v_tpu's dense face x pixel expression in chunks of faces
+   and keeps the first minimum: masks identical, images within
+   ``RASTER_TOL`` except at near-ties (``phase_face3d_reference``).
+23. face3d train: ``synthetic_bfm`` at BFM_model_front's sizes (35,709
+   vertices, 70,789 triangles, 80/64/80 basis columns; the .mat is not in
+   the repository), ReconNet at full width (ResNet50, random, heads scaled
+   by 0.1), batch 32 at 224^2 of synthetic faces with the port's
+   ``skin_mask`` as their skin region, an IResNet-50 identity term on the
+   render resized to 112^2, lr 1e-4, f32 without TF32, 5 steps: every
+   term finite, the parameters moved, no kernel launched (the counts reset
+   just before, read just after); ms per step, ``rasterize`` ms forward and
+   backward, peak memory, and one more step under torch.profiler
+   (``phase_face3d_train``).
+24. expression train: a slim d_step + g_step card vs CPU for both
+   objectives within ``EXPR_SLIM_TOL``; then ``SplitGenerator`` at full
+   width (ngf 64, 6 blocks, 17 AUs, 128^2) against ``split_critic`` (the
+   reference SplitDiscriminator's layout), batch 25, 10 d_steps with a
+   g_step after every 5th, for ``model="ganimation"`` and ``"stargan"``:
+   finite metrics, no kernel launched; ms per step kind, peak memory, one
+   more GANimation d_step and g_step under torch.profiler
+   (``phase_expression_train``).
+25. encodec: ``EncodecModel`` at full width (32 filters, 128-d, 2 LSTM
+   layers of 512, n_q 32, random, codebooks at the latents' scale) on 10 s
+   of synthetic 24 kHz speech, card vs CPU: latents within 1e-4 of scale,
+   codes equal on every frame whose top-2 margins decide them (at least
+   half of them, over 20 distinct codes), ``decode_codes`` finite; then
+   ``audio_to_codes`` at 25 fps through ``EncodecCodec`` on the card: 250
+   windows of 0.2 s give codes [250, 32, 15], no kernel launched; ms per
+   10 s and per window (``phase_encodec``).
 
 Every time printed stands beside the card's name and power limit (printed
 first). The line before the last is one JSON object with every kernel's
 numbers, its launches summed over the main paths (the inference slice, the
 CLI's cold run, the first opt-in infer run, the one-card mesh run, GPEN
 training, the train command, GFPGAN training, the one-rank data-parallel
-GPEN steps and the full-width SR generator's forward) and split by path; the
+GPEN steps, the full-width SR generator's forward, and the face3d,
+expression and EnCodec runs, which launch none) and split by path; the
 last is
 ``{"ok": true, "device": {...}}``. Details go to
 chiprun_out/chip_smoke.json. TF32 is off throughout (f32 convs and matmuls
@@ -246,6 +283,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import functools
 import json
 import math
 import subprocess
@@ -1849,19 +1887,27 @@ def init_nccl(torch, work):
 GAN_DP_PAIRS = 2
 
 
-def gan_dp_run(torch, mesh, shard=(0, 1), seed=0):
+def gan_dp_batch(work):
+    """The training phase's first batch, made once on the host (~6 s) and
+    read by every run of the phase, the gloo ranks' too."""
+    path = Path(work) / "gan_dp_batch.npz"
+    if not path.exists():
+        np.savez(path, **train_batches(512, 8, 4, 1, seed=0)[0][0])
+    return dict(np.load(path))
+
+
+def gan_dp_run(torch, mesh, batch, shard=(0, 1), seed=0):
     """GPEN-BFR-512 step pairs 0-1 (R1 at 0) from ``gan_models`` seed 0 on
-    the training phase's first batch (its rank's shard under a mesh); the
-    state, each step's launches, and the flattened gradients (averaged over
-    the group) that pair 0's steps took: D's at the R1 step, then G's."""
+    ``batch``, the training phase's first (its rank's shard under a mesh);
+    the state, each step's launches, and the flattened gradients (averaged
+    over the group) that pair 0's steps took: D's at the R1 step, then
+    G's."""
     from s2v_torch.ops.kernels import launch_counts
     from s2v_torch.train.gan import make_gan_trainer
 
     g, d = gan_models(torch, 512, seed, channel_multiplier=2, narrow=1.0, style_dim=512, n_mlp=8)
-    batch, _ = train_batches(512, 8, 4, 1, seed=0)
     rank, world = shard
-    batch = {k: torch.as_tensor(np.array_split(v, world)[rank]).cuda()
-             for k, v in batch[0].items()}
+    batch = {k: torch.as_tensor(np.array_split(v, world)[rank]).cuda() for k, v in batch.items()}
     state, d_step, g_step = make_gan_trainer(g, d, d_reg_every=16, mesh=mesh)
     steps, grads = [], []
     for pair in range(GAN_DP_PAIRS):
@@ -1915,7 +1961,8 @@ def gan_dp_gloo_rank(rank, world, work, out_path):
                             rank=rank, world_size=world, timeout=datetime.timedelta(seconds=300))
     try:
         mesh = make_process_mesh(world, 1)
-        state, steps, grads = gan_dp_run(torch, mesh, (rank, world))
+        batch = gan_dp_batch(work)
+        state, steps, grads = gan_dp_run(torch, mesh, batch, (rank, world))
         agree = replicas_agree(list(state.g.parameters()) + list(state.d.parameters())
                                + list(state.g_ema.parameters()), data_group(mesh))
         out = dict(g=[p.detach().cpu() for p in state.g.parameters()],
@@ -1925,7 +1972,7 @@ def gan_dp_gloo_rank(rank, world, work, out_path):
         whole_batch = gpen.minibatch_stddev
         gpen.minibatch_stddev = lambda x, group=None: whole_batch(x, None)
         try:
-            planted, _, planted_grads = gan_dp_run(torch, mesh, (rank, world))
+            planted, _, planted_grads = gan_dp_run(torch, mesh, batch, (rank, world))
         finally:
             gpen.minibatch_stddev = whole_batch
         out["planted"] = {m: [p.detach().cpu() for p in getattr(planted, m).parameters()]
@@ -2029,15 +2076,16 @@ def phase_gan_dp(torch, card, work):
                                     for m in ("g", "d")})
 
     mesh = make_process_mesh(1, 1)
+    batch = gan_dp_batch(work)
     reset_launch_counts()
     t0 = time.perf_counter()
-    state, steps, grads = gan_dp_run(torch, mesh)
+    state, steps, grads = gan_dp_run(torch, mesh, batch)
     wall = time.perf_counter() - t0
     launches = launch_counts()
     want = expected_train_launches(state.g, state.d)
     one = params_of(state, grads)
     del state
-    plain, plain_steps, plain_grads = gan_dp_run(torch, None)
+    plain, plain_steps, plain_grads = gan_dp_run(torch, None, batch)
     errs = gan_dp_errs(one, params_of(plain, plain_grads))
     del plain
     ok = gan_dp_within(errs) and all(st["launches"] == want[st["kind"]] for st in steps)
@@ -2614,9 +2662,12 @@ def gan_models(torch, size, seed, **kw):
     return g, d
 
 
+@functools.lru_cache(maxsize=None)
 def train_batches(size, n_images, batch, n_batches, seed):
-    """``face_batches`` over synthetic faces, JPEG off (the card's machine has
-    no Pillow); returns the batches and the host seconds per batch."""
+    """``face_batches`` over synthetic faces, JPEG off; returns the batches
+    and the host seconds per batch. Made once a process for each argument
+    set (a 512^2 batch of 4 takes ~6 s on the host): the GPEN training and
+    data-parallel phases share theirs, and nothing writes to them."""
     from s2v_torch.prep.degradations import GFPGANDegrader, face_batches
 
     faces = synthetic_faces(n_images, size, seed)
@@ -2687,7 +2738,7 @@ def phase_train(torch, card):
     print(f"train: built GPEN-BFR-512 G ({sum(p.numel() for p in g.parameters()) / 1e6:.1f}M "
           f"params) and D ({sum(p.numel() for p in d.parameters()) / 1e6:.1f}M) in "
           f"{time.perf_counter() - t:.1f} s; launches per step derived from the models: {want}")
-    batches, host_s = train_batches(512, 8, 4, 2, seed=0)
+    batches, host_s = train_batches(512, 8, 4, 1, seed=0)
     print(f"train: face_batches host {host_s:.2f} s per batch of 4 at 512^2 (JPEG off)")
     batches = [{k: torch.as_tensor(v).cuda() for k, v in b.items()} for b in batches]
     state, d_step, g_step = make_gan_trainer(g, d, d_reg_every=16)
@@ -2699,7 +2750,7 @@ def phase_train(torch, card):
     steps = []
     t_run = time.perf_counter()
     for pair in range(17):
-        batch = batches[pair % 2]
+        batch = batches[0]
         for kind, fn in (("d_r1" if state.step % 16 == 0 else "d", d_step), ("g", g_step)):
             before = launch_counts()
             torch.cuda.synchronize()
@@ -3471,6 +3522,561 @@ def phase_metrics(torch, card, outputs, mesh_report):
     return report
 
 
+BFM_VERTS, BFM_RIM = 35709, 627  # BFM_model_front.mat: 35,709 vertices, 70,789 triangles
+FACE3D_BATCH, FACE3D_STEPS, FACE3D_LR = 32, 5, 1e-4  # the reference's batch size and lr
+FACE3D_SLIM_TOL = dict(metrics=1e-4, grads=1e-3, stats=1e-4)  # relative; card vs CPU, f32
+RASTER_TOL = 1e-5  # the images' agreement away from near-ties (equal depths within 1e-5)
+
+
+def synthetic_bfm(n_verts=BFM_VERTS, n_rim=BFM_RIM, seed=0):
+    """BFM arrays at the published sizes (no .mat is in the repository): a
+    face-sized height field over the Delaunay triangulation of a disk whose
+    rim holds ``n_rim`` of the points, so it has 2 * n_verts - 2 - n_rim
+    triangles (BFM_model_front's 70,789 for its 35,709 vertices); smooth
+    random id / exp / tex bases of 80 / 64 / 80 columns, small enough to
+    keep the head in view; ``point_buf`` from the mesh's own adjacency (8 faces a
+    vertex at most, padded with F, the zero normal); 68 keypoints at the
+    vertices nearest a landmark template."""
+    from scipy.spatial import Delaunay
+
+    from s2v_torch.models.bfm import FaceModelData
+
+    rng = np.random.RandomState(seed)
+    k = np.arange(n_verts - n_rim) + 0.5
+    r = np.sqrt(k / (n_verts - n_rim)) * 0.985  # a sunflower inside the rim
+    phi = k * np.pi * (3 - np.sqrt(5))
+    t = 2 * np.pi * np.arange(n_rim) / n_rim
+    uv = np.concatenate([np.stack([r * np.cos(phi), r * np.sin(phi)], 1),
+                         np.stack([np.cos(t), np.sin(t)], 1)])
+    faces = Delaunay(uv).simplices.astype(np.int64)
+    if len(faces) != 2 * n_verts - 2 - n_rim:
+        raise RuntimeError(f"synthetic BFM: {len(faces)} triangles")
+    u, v = uv[:, 0], uv[:, 1]
+    z = (0.6 * np.sqrt(np.clip(1 - u ** 2 - v ** 2, 0, None))
+         + 0.25 * np.exp(-(u ** 2 / 0.01 + (v + 0.05) ** 2 / 0.06)))  # a cap and a nose
+    shape = np.stack([u * 0.75, v * 0.95, z], 1)
+    shape -= shape.mean(0)
+    f = len(faces)
+    vert, face_of = faces.reshape(-1), np.repeat(np.arange(f), 3)
+    order = np.argsort(vert, kind="stable")
+    vert, face_of = vert[order], face_of[order]
+    rank = np.arange(len(vert)) - np.searchsorted(vert, np.arange(n_verts))[vert]
+    point_buf = np.full((n_verts, 8), f, np.int64)
+    point_buf[vert[rank < 8], rank[rank < 8]] = face_of[rank < 8]
+    lm = synthetic_landmarks(1, 224, 224, np.random.RandomState(seed))[0]
+    xy = np.stack([(lm[:, 0] - 112) * 9.5 / 1015, (112 - lm[:, 1]) * 9.5 / 1015], 1)
+    keypoints = np.argmin(((shape[None, :, :2] - xy[:, None]) ** 2).sum(-1), 1)
+    # smooth random bases, as PCA modes are: 16 low cosines over the disk,
+    # each column a random mix per coordinate (vertex-wise noise would
+    # crumple the surface into overlapping spikes)
+    cos = [np.cos(np.pi * a * (u + 1) / 2) * np.cos(np.pi * b * (v + 1) / 2)
+           for a in range(4) for b in range(4)]
+    modes = np.stack(cos, 1)
+
+    def basis(cols, scale):
+        return (modes @ (rng.randn(16, 3 * cols) * scale / 4)).reshape(3 * n_verts, cols)
+
+    return FaceModelData(
+        mean_shape=shape.reshape(-1).astype(np.float32),
+        id_base=basis(80, 0.02).astype(np.float32),
+        exp_base=basis(64, 0.02).astype(np.float32),
+        mean_tex=(np.tile([200.0, 160.0, 130.0], n_verts) + basis(1, 10)[:, 0]).astype(np.float32),
+        tex_base=basis(80, 5).astype(np.float32),
+        face_buf=faces, point_buf=point_buf, keypoints=keypoints.astype(np.int64))
+
+
+def vertex_skin(data):
+    """The reflectance term's per-vertex skin mask: the inner face."""
+    xy = data.mean_shape.reshape(-1, 3)[:, :2]
+    return ((xy[:, 0] / 0.75) ** 2 + (xy[:, 1] / 0.95) ** 2 < 0.6).astype(np.float32)
+
+
+def seeded_recon(torch, seed, **kw):
+    """A random ReconNet whose heads are scaled by 0.1, so that its random
+    coefficients keep the head in view."""
+    from s2v_torch.models.resnet import ReconNet
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        recon = ReconNet(**kw)
+    with torch.no_grad():
+        for head in recon.final_layers:
+            head.weight.mul_(0.1)
+    return recon
+
+
+def iresnet_embed(torch, net):
+    """The face3d identity term's embedder: the NHWC render in [0, 1] resized
+    to 112^2, in [-1, 1], through a frozen IResNet, L2-normalised."""
+    import torch.nn.functional as F
+
+    def embed(images):
+        x = F.interpolate(images.permute(0, 3, 1, 2), size=(112, 112), mode="bilinear",
+                          align_corners=False)
+        feat = net((x - 0.5) / 0.5)
+        return feat / feat.norm(dim=-1, keepdim=True)
+
+    return embed
+
+
+def face3d_batch(torch, n, size, seed, device):
+    """Synthetic faces with landmarks and the port's ``skin_mask`` as the
+    batch's skin region; returns the batch and skin_mask's host seconds."""
+    from s2v_torch.prep.face3d_data import skin_mask
+
+    images = synthetic_faces(n, size, seed)
+    t = time.perf_counter()
+    mask = skin_mask(images)
+    mask_s = time.perf_counter() - t
+    batch = {"image": torch.from_numpy(images).to(device).float() / 255,
+             "gt_lm": torch.from_numpy(synthetic_landmarks(n, size, size,
+                                                           np.random.RandomState(seed))).to(device),
+             "mask": torch.from_numpy(mask[..., None]).to(device).float() / 255}
+    return batch, mask_s
+
+
+def near_ties(torch, vertices, faces, pixels, size, eps=RASTER_TOL):
+    """For each pixel (b, y, x) given: do its two nearest covering depths, by
+    s2v_tpu's inside test against every face, lie within ``eps``?"""
+    v = vertices.detach().float().cpu()
+    xy = v[..., :2] * 1015.0 / v[..., 2:] + 112.0
+    px, py, z = xy[..., 0], (size - 1.0) - xy[..., 1], v[..., 2]
+    tri = torch.as_tensor(faces).cpu()
+    out = []
+    for b, y, x in pixels:
+        (ax, ay, az), (bx, by, bz), (cx, cy, cz) = [(px[b, tri[:, k]], py[b, tri[:, k]],
+                                                     z[b, tri[:, k]]) for k in range(3)]
+        det = (by - cy) * (ax - cx) + (cx - bx) * (ay - cy)
+        det = torch.where(det.abs() < 1e-9, 1e-9, det)
+        w0 = ((by - cy) * (x - cx) + (cx - bx) * (y - cy)) / det
+        w1 = ((cy - ay) * (x - ax) + (ax - cx) * (y - ay)) / det
+        w2 = 1.0 - w0 - w1
+        depth = torch.where((w0 >= 0) & (w1 >= 0) & (w2 >= 0), w0 * az + w1 * bz + w2 * cz,
+                            math.inf).sort().values
+        out.append(bool(depth[1] - depth[0] <= eps))
+    return out
+
+
+def dense_rasterize(torch, vertices, faces, attributes, size=224, chunk=2048):
+    """An independent witness for ``rasterize``: s2v_tpu's dense [F, P]
+    expression (bfm.py:203-237, the default camera), in chunks of
+    ``chunk`` faces on the vertices' device. Within a chunk the first
+    index at the minimum depth wins; a later chunk replaces the running
+    winner only where it is strictly nearer: together ``jnp.argmin``'s
+    first minimum. Returns (image [B, H, W, C], mask [B, H, W, 1])."""
+    with torch.no_grad():
+        v = vertices.float()
+        xy = v[..., :2] * 1015.0 / v[..., 2:] + 112.0
+        px, py, z = xy[..., 0], (size - 1.0) - xy[..., 1], v[..., 2]
+        tri = torch.as_tensor(faces, dtype=torch.int64, device=v.device)
+        ys, xs = torch.meshgrid(torch.arange(size, device=v.device),
+                                torch.arange(size, device=v.device), indexing="ij")
+        xs, ys = xs.reshape(-1).float(), ys.reshape(-1).float()
+
+        def bary(b, f, x, y):  # s2v_tpu's w0, w1, w2 of faces f at pixels (x, y)
+            (ax, ay), (bx, by), (cx, cy) = [(px[b, tri[f, k]], py[b, tri[f, k]]) for k in range(3)]
+            det = (by - cy) * (ax - cx) + (cx - bx) * (ay - cy)
+            det = torch.where(det.abs() < 1e-9, 1e-9, det)
+            w0 = ((by - cy) * (x - cx) + (cx - bx) * (y - cy)) / det
+            w1 = ((cy - ay) * (x - ax) + (ax - cx) * (y - ay)) / det
+            return w0, w1, 1.0 - w0 - w1
+
+        imgs, masks = [], []
+        for b in range(v.shape[0]):
+            best_z = torch.full_like(xs, math.inf)
+            best_f = torch.zeros_like(xs, dtype=torch.int64)
+            for f0 in range(0, len(tri), chunk):
+                f = torch.arange(f0, min(f0 + chunk, len(tri)), device=v.device)
+                w0, w1, w2 = bary(b, f[:, None], xs[None], ys[None])
+                az, bz, cz = [z[b, tri[f, k]][:, None] for k in range(3)]
+                zpix = torch.where((w0 >= 0) & (w1 >= 0) & (w2 >= 0),
+                                   w0 * az + w1 * bz + w2 * cz, math.inf)
+                zmin = zpix.amin(0)
+                first = torch.where(zpix == zmin, f[:, None], len(tri)).amin(0)
+                nearer = zmin < best_z
+                best_z = torch.where(nearer, zmin, best_z)
+                best_f = torch.where(nearer, first, best_f)
+            hit = torch.isfinite(best_z)
+            wb = torch.stack(bary(b, best_f, xs, ys), -1)
+            img = torch.einsum("pk,pkc->pc", wb, attributes[b].float()[tri[best_f]])
+            imgs.append(torch.where(hit[:, None], img, 0.0).reshape(size, size, -1))
+            masks.append(hit.reshape(size, size, 1).float())
+        return torch.stack(imgs), torch.stack(masks)
+
+
+def phase_face3d_reference(torch):
+    """One slim face3d step on the card and on the CPU from the same state
+    and batch, then ``rasterize`` at full width on both (phase 22)."""
+    from s2v_torch.models.bfm import ParametricFaceModel, rasterize
+    from s2v_torch.models.iresnet import IResNet
+    from s2v_torch.train.face3d_train import make_face3d_train_step
+
+    data = synthetic_bfm(3000, 150, seed=1)
+    recon = seeded_recon(torch, 1, layers=(1, 1, 1, 1), base_planes=16)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(2)
+        idnet = IResNet((1, 1, 1, 1), 64).eval().requires_grad_(False)
+    batch, _ = face3d_batch(torch, 4, 224, 3, "cpu")
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        fm = ParametricFaceModel(data, device=dev)
+        init_fn, step_fn = make_face3d_train_step(
+            fm, skin_mask=vertex_skin(data), lr=FACE3D_LR, device=dev,
+            id_embed_fn=iresnet_embed(torch, copy.deepcopy(idnet).to(dev)))
+        state = init_fn(recon=copy.deepcopy(recon))
+        state, m = step_fn(state, {k: v.to(dev) for k, v in batch.items()})
+        runs[dev] = ({k: float(v) for k, v in m.items()},
+                     [p.grad.cpu() for p in state.module.parameters()],
+                     [b.cpu() for k, b in state.module.state_dict().items() if "running_" in k])
+    (mc, gc, sc), (mp, gp, sp) = runs["cuda"], runs["cpu"]
+    errs = dict(metrics=max(abs(mc[k] - mp[k]) / max(abs(mp[k]), 1e-12) for k in mp),
+                grads=rel_l2(gc, gp), stats=max(rel_l2([a], [b]) for a, b in zip(sc, sp)))
+    ok = all(math.isfinite(v) for v in mc.values()) and all(
+        errs[k] <= tol for k, tol in FACE3D_SLIM_TOL.items())
+    print(f"face3d reference: slim step (ReconNet (1, 1, 1, 1) x16, {len(data.face_buf)} faces, "
+          f"batch 4 at 224^2) card vs CPU: " + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+          + f" (tol {FACE3D_SLIM_TOL}); metrics {mc}; {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"face3d slim step card vs CPU: {errs}")
+
+    full = synthetic_bfm()
+    fm = ParametricFaceModel(full, device="cpu")
+    coeffs = torch.from_numpy(np.random.RandomState(4).randn(2, 257).astype(np.float32) * 0.05)
+    with torch.no_grad():
+        vertex, _, color, _ = fm.compute_for_render(coeffs)
+    t = time.perf_counter()
+    img_cpu, mask_cpu = rasterize(vertex, fm.face_buf, color)
+    cpu_s = time.perf_counter() - t
+    img, mask = rasterize(vertex.cuda(), fm.face_buf.cuda(), color.cuda())
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    img_dense, mask_dense = dense_rasterize(torch, vertex.cuda(), fm.face_buf, color.cuda())
+    torch.cuda.synchronize()
+    dense_s = time.perf_counter() - t
+    img, mask, img_dense, mask_dense = img.cpu(), mask.cpu(), img_dense.cpu(), mask_dense.cpu()
+    report = dict(slim_errs=errs, tol=FACE3D_SLIM_TOL, raster_cpu_s=cpu_s, dense_s=dense_s)
+    for name, (want_img, want_mask) in (("CPU", (img_cpu, mask_cpu)),
+                                        ("the dense witness", (img_dense, mask_dense))):
+        same_mask = torch.equal(mask, want_mask)
+        off = ((img - want_img).abs().amax(-1) > RASTER_TOL).nonzero().tolist()
+        ties = near_ties(torch, vertex, fm.face_buf, off, 224)
+        ok = same_mask and all(ties)
+        print(f"face3d reference: rasterize at full width ({len(full.face_buf)} faces, 2 images "
+              f"at 224^2, {float(mask.mean()):.3f} covered) card vs {name}: masks identical "
+              f"{same_mask}, {len(off)} pixels beyond {RASTER_TOL:g}, {sum(ties)} of them "
+              f"near-ties; max diff {float((img - want_img).abs().max()):.2e}; "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"rasterize card vs {name}: masks identical {same_mask}, {len(off)} pixels off, "
+                 f"{len(off) - sum(ties)} of them not near-ties")
+        key = "raster" if name == "CPU" else "dense"
+        report.update({f"{key}_same_mask": same_mask, f"{key}_off": len(off)})
+    print(f"face3d reference: rasterize on the CPU {cpu_s:.2f} s; the dense witness on the "
+          f"card {dense_s:.2f} s ({len(full.face_buf) * 224 * 224 * 2 / 1e9:.2f} G pairs)")
+    return report
+
+
+def phase_face3d_train(torch, card):
+    """Five full-width face3d steps at the published BFM size (phase 23)."""
+    from s2v_torch.models.bfm import ParametricFaceModel, rasterize
+    from s2v_torch.models.iresnet import IResNet
+    from s2v_torch.ops.kernels import launch_counts, reset_launch_counts
+    from s2v_torch.train.face3d_train import make_face3d_train_step
+
+    data = synthetic_bfm()
+    fm = ParametricFaceModel(data, device="cuda")
+    recon = seeded_recon(torch, 0)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(1)
+        idnet = IResNet((3, 4, 14, 3), 512)
+    idnet = idnet.cuda().eval().requires_grad_(False)
+    batch, mask_s = face3d_batch(torch, FACE3D_BATCH, 224, 7, "cuda")
+    init_fn, step_fn = make_face3d_train_step(fm, skin_mask=vertex_skin(data), lr=FACE3D_LR,
+                                              id_embed_fn=iresnet_embed(torch, idnet))
+    state = init_fn(recon=recon)
+    before = [p.detach().clone() for p in recon.parameters()]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    ms, metrics = [], []
+    for _ in range(FACE3D_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step_fn(state, batch)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        metrics.append({k: float(v) for k, v in m.items()})
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    moved = sum(not torch.equal(a, p) for a, p in zip(before, recon.parameters()))
+    finite = all(math.isfinite(v) for m in metrics for v in m.values())
+
+    # rasterize alone on this batch's geometry: forward, then the backward of
+    # a random cotangent, synchronised host clock, median of 3
+    state.module.eval()
+    with torch.no_grad():
+        vertex, _, color, _ = fm.compute_for_render(state.module(batch["image"].permute(0, 3, 1, 2)))
+    state.module.train()
+    vertex, color = vertex.requires_grad_(), color.requires_grad_()
+    fwd, bwd = [], []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img, mask = rasterize(vertex, fm.face_buf, color)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        img.backward(torch.ones_like(img))
+        torch.cuda.synchronize()
+        fwd.append((t1 - t0) * 1e3)
+        bwd.append((time.perf_counter() - t1) * 1e3)
+    fwd_ms, bwd_ms = sorted(fwd)[1], sorted(bwd)[1]
+    covered = float(mask.mean())
+    steady = sum(ms[1:]) / (len(ms) - 1)
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step_fn(state, batch)
+        torch.cuda.synchronize()
+    prof_report = profile_rows(device_rows(prof), "one more face3d step", steady)
+    ok = finite and moved > 0 and not any(launches.values()) and covered > 0.05
+    print(f"face3d train: ReconNet (ResNet50) batch {FACE3D_BATCH} at 224^2, {BFM_VERTS} vertices "
+          f"and {len(data.face_buf)} triangles, IResNet-50 identity term, f32 without TF32, lr "
+          f"{FACE3D_LR:g}: {steady:.1f} ms/step (steps 2-{FACE3D_STEPS}; step 1 {ms[0]:.1f}), "
+          f"rasterize {fwd_ms:.2f} ms forward + {bwd_ms:.2f} ms backward ({covered:.3f} of the "
+          f"pixels covered), peak {peak:.2f} GiB, skin_mask {mask_s:.2f} s on the host; "
+          f"{moved} parameter tensors moved; launches {launches}; last metrics "
+          f"{ {k: round(v, 4) for k, v in metrics[-1].items()} }; {'ok' if ok else 'FAIL'}; {card}")
+    if not ok:
+        fail(f"face3d train: finite {finite}, {moved} tensors moved, launches {launches}, "
+             f"covered {covered}")
+    return launches, dict(ms=ms, ms_per_step=steady, raster_fwd_ms=fwd_ms, raster_bwd_ms=bwd_ms,
+                          covered=covered, peak_gib=peak, metrics=metrics, skin_mask_s=mask_s,
+                          profile=prof_report)
+
+
+EXPR_STEPS, EXPR_G_EVERY, EXPR_BATCH = 10, 5, 25  # ganimation_replicate: train_gen_iter 5, batch 25
+EXPR_SLIM_TOL = dict(metrics=1e-4, grads=1e-3)  # relative; card vs CPU, f32
+
+
+def split_critic(torch, image_size=128, ndf=64, n_layers=6, aus_nc=17):
+    """The reference's SplitDiscriminator layout (ganimation_replicate
+    model_utils.py): 4x4 stride-2 convs with LeakyReLU 0.01, a 3x3 score
+    head and an AU head over the whole last map. The JAX package has no
+    GANimation discriminator, so it lives here only."""
+    import torch.nn as nn
+
+    class SplitDiscriminator(nn.Module):
+        def __init__(self):
+            super().__init__()
+            seq, cur = [nn.Conv2d(3, ndf, 4, 2, 1), nn.LeakyReLU(0.01)], ndf
+            for _ in range(1, n_layers):
+                seq += [nn.Conv2d(cur, 2 * cur, 4, 2, 1), nn.LeakyReLU(0.01)]
+                cur *= 2
+            self.main = nn.Sequential(*seq)
+            self.dis_top = nn.Conv2d(cur, 1, 3, 1, 1, bias=False)
+            self.aus_top = nn.Conv2d(cur, aus_nc, image_size // 2 ** n_layers, 1, bias=False)
+
+        def forward(self, img):
+            h = self.main(img)
+            return self.dis_top(h), self.aus_top(h).flatten(1)
+
+    return SplitDiscriminator()
+
+
+def expression_models(torch, seed, image_size, ngf, n_blocks, ndf, n_layers):
+    from s2v_torch.models.ganimation import SplitGenerator
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        return (SplitGenerator(ngf=ngf, n_blocks=n_blocks),
+                split_critic(torch, image_size, ndf, n_layers))
+
+
+def expression_batch(torch, n, size, seed, device):
+    rng = np.random.RandomState(seed)
+    src = synthetic_faces(n, size, seed).transpose(0, 3, 1, 2).astype(np.float32) / 127.5 - 1
+    aus = rng.rand(n, 17).astype(np.float32)
+    return [torch.from_numpy(a).to(device) for a in (src, aus, aus[rng.permutation(n)])]
+
+
+def phase_expression_train(torch, card):
+    """The slim d/g pair card vs CPU, then the full-width schedule for both
+    objectives (phase 24)."""
+    from s2v_torch.ops.kernels import launch_counts, reset_launch_counts
+    from s2v_torch.train.ganimation_train import make_expression_trainer
+
+    out = {}
+    for model in ("ganimation", "stargan"):
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            g, d = expression_models(torch, 3, 32, 8, 1, 8, 3)
+            state, d_step, g_step = make_expression_trainer(g, d, model=model, device=dev)
+            src = expression_batch(torch, 4, 32, 4, dev)
+            state, dm = d_step(state, *src, torch.Generator().manual_seed(5))
+            d_grads = [p.grad.cpu() for p in d.parameters()]
+            state, gm = g_step(state, *src)
+            runs[dev] = ({**dm, **gm}, d_grads,
+                         [p.grad.cpu() for p in g.parameters() if p.grad is not None])
+        (mc, dc, gc), (mp, dp, gp) = runs["cuda"], runs["cpu"]
+        errs = dict(metrics=max(abs(float(mc[k]) - float(mp[k])) / max(abs(float(mp[k])), 1e-12)
+                                for k in mp),
+                    grads=max(rel_l2(dc, dp), rel_l2(gc, gp)))
+        ok = all(errs[k] <= tol for k, tol in EXPR_SLIM_TOL.items())
+        print(f"expression reference ({model}): slim d_step + g_step (SplitGenerator ngf 8, one "
+              f"block, critic 8 x 3 layers, batch 4 at 32^2) card vs CPU: "
+              + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+              + f" (tol {EXPR_SLIM_TOL}); {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"expression slim {model} card vs CPU: {errs}")
+        out[f"{model}_slim_errs"] = errs
+
+    src = expression_batch(torch, EXPR_BATCH, 128, 6, "cuda")
+    rng = torch.Generator("cuda").manual_seed(7)
+    total = {}
+    for model in ("ganimation", "stargan"):
+        g, d = expression_models(torch, 8, 128, 64, 6, 64, 6)
+        state, d_step, g_step = make_expression_trainer(g, d, model=model)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        times = {"d": [], "g": []}
+        metrics = []
+        for i in range(EXPR_STEPS):
+            for kind in ("d", "g") if (i + 1) % EXPR_G_EVERY == 0 else ("d",):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, m = (d_step(state, *src, rng) if kind == "d" else g_step(state, *src))
+                torch.cuda.synchronize()
+                times[kind].append((time.perf_counter() - t0) * 1e3)
+                metrics.append({k: float(v) for k, v in m.items()})
+        launches = launch_counts()
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        finite = all(math.isfinite(v) for m in metrics for v in m.values())
+        d_ms = sum(times["d"][1:]) / (len(times["d"]) - 1)
+        g_ms = sum(times["g"][1:]) / (len(times["g"]) - 1)
+        ok = finite and not any(launches.values())
+        print(f"expression train ({model}): SplitGenerator ngf 64, 6 blocks, critic 64 x 6 layers, "
+              f"batch {EXPR_BATCH} at 128^2, {EXPR_STEPS} d_steps and a g_step after every "
+              f"{EXPR_G_EVERY}th, f32: d_step {d_ms:.1f} ms (first {times['d'][0]:.1f}), g_step "
+              f"{g_ms:.1f} ms (first {times['g'][0]:.1f}), peak {peak:.2f} GiB; launches "
+              f"{launches}; last metrics { {k: round(v, 4) for k, v in metrics[-1].items()} }; "
+              f"{'ok' if ok else 'FAIL'}; {card}")
+        if not ok:
+            fail(f"expression train {model}: finite {finite}, launches {launches}")
+        out[model] = dict(d_ms=times["d"], g_ms=times["g"], d_ms_steady=d_ms, g_ms_steady=g_ms,
+                          peak_gib=peak, last=metrics[-1])
+        if model == "ganimation":
+            from torch.profiler import ProfilerActivity, profile
+
+            for kind, step, args in (("d_step", d_step, (*src, rng)), ("g_step", g_step, src)):
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    step(state, *args)
+                    torch.cuda.synchronize()
+                out[model][f"{kind}_profile"] = profile_rows(
+                    device_rows(prof), f"one more ganimation {kind}",
+                    d_ms if kind == "d_step" else g_ms)
+        del state, g, d
+        torch.cuda.empty_cache()
+    return total, out
+
+
+ENCODEC_SECONDS, ENCODEC_FPS = 10.0, 25.0
+
+
+def synthetic_speech(seconds, sr, seed):
+    """Voiced syllables: a gliding pitch with ten harmonics under a
+    4 Hz syllable envelope, plus breath noise, amplitude about 0.3."""
+    rng = np.random.RandomState(seed)
+    t = np.arange(int(seconds * sr)) / sr
+    f0 = 120 + 30 * np.sin(2 * np.pi * 0.3 * t) + 10 * np.sin(2 * np.pi * 2.1 * t)
+    phase = 2 * np.pi * np.cumsum(f0) / sr
+    voice = sum(np.sin(h * phase) / h for h in range(1, 11))
+    env = np.clip(np.sin(2 * np.pi * 4 * t + rng.uniform(0, 6)), 0, None) ** 0.5
+    return (0.15 * voice * env + 0.01 * rng.randn(len(t))).astype(np.float32)
+
+
+def decidable(z, codebooks, codes, delta):
+    """[T] frames whose every stage's top-2 distance margin exceeds what a
+    latent difference of ``delta`` (max abs) can move a distance (the CPU
+    tests' rule; z [D, T] and codes [n_q, T] from one side)."""
+    r = np.asarray(z, np.float64).T
+    ok = np.ones(len(r), bool)
+    cmax = max(np.linalg.norm(cb, axis=-1).max() for cb in codebooks)
+    for q, cb in enumerate(codebooks):
+        d2 = (r * r).sum(-1, keepdims=True) - 2 * r @ cb.T + (cb * cb).sum(-1)
+        two = np.sort(d2, -1)[:, :2]
+        bound = 4 * (np.linalg.norm(r, axis=-1) + cmax) * np.sqrt(r.shape[-1]) * delta
+        ok &= (two[:, 1] - two[:, 0]) > bound
+        r = r - cb[codes[q]]
+    return ok
+
+
+def phase_encodec(torch, card):
+    """EnCodec 24 kHz at full width card vs CPU on 10 s of synthetic speech,
+    then ``audio_to_codes`` at 25 fps on the card (phase 25)."""
+    from s2v_torch.models.encodec import HOP, EncodecCodec, EncodecModel
+    from s2v_torch.ops.kernels import launch_counts, reset_launch_counts
+    from s2v_torch.prep.tools import audio_to_codes
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        model = EncodecModel().eval()
+    wav = synthetic_speech(ENCODEC_SECONDS, 24000, 3)
+    x = torch.from_numpy(wav)[None, None]
+    with torch.no_grad():
+        z_cpu = model.encoder(x)
+        for q in range(model.n_q):  # trained codebooks live at the latents' scale
+            model.quantizer.codebook(q).mul_(float(z_cpu.std()))
+        codes_cpu = model.quantizer(z_cpu)[1]
+    cpu, model = model, copy.deepcopy(model).cuda()
+    reset_launch_counts()
+    with torch.no_grad():
+        z = model.encoder(x.cuda()).cpu()
+        model.encode(x.cuda())  # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        codes = model.encode(x.cuda())
+        torch.cuda.synchronize()
+        enc_ms = (time.perf_counter() - t0) * 1e3
+        back = model.decode_codes(codes)
+    codes = codes.cpu()
+    scale = float(z_cpu.abs().max())
+    delta = float((z - z_cpu).abs().max())
+    cbs = [cpu.quantizer.codebook(q).numpy() for q in range(cpu.n_q)]
+    ok_frames = decidable(z_cpu[0].numpy(), cbs, codes_cpu[0].numpy(), max(delta, 1e-7))
+    codes_equal = bool((codes[0].numpy()[:, ok_frames] == codes_cpu[0].numpy()[:, ok_frames]).all())
+    n_frames = int(ENCODEC_SECONDS * ENCODEC_FPS)
+    codec = EncodecCodec(model)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    per_frame = audio_to_codes(wav, 24000, n_frames, ENCODEC_FPS, codec=codec)
+    windows_s = time.perf_counter() - t0
+    launches = launch_counts()
+    distinct = len(np.unique(codes_cpu.numpy()))
+    ok = (delta <= 1e-4 * scale and codes_equal and ok_frames.mean() >= 0.5 and distinct > 20
+          and codes.shape == (1, 32, int(ENCODEC_SECONDS * 75))
+          and back.shape == (1, 1, codes.shape[-1] * HOP) and bool(back.isfinite().all())
+          and per_frame.shape == (n_frames, 32, 15) and not any(launches.values()))
+    print(f"encodec: EncodecModel (32 filters, 128-d, LSTM 2 x 512, n_q 32) on {ENCODEC_SECONDS:g} s "
+          f"of synthetic 24 kHz speech: latents card vs CPU {delta:.2e} (scale {scale:.3f}, tol "
+          f"1e-4 of it), codes equal on the {ok_frames.mean():.3f} of frames whose margins "
+          f"decide them: {codes_equal} ({distinct} distinct codes); {codes.shape[-1]} code frames in "
+          f"{enc_ms:.1f} ms; "
+          f"decode_codes {tuple(back.shape)} finite; audio_to_codes at {ENCODEC_FPS:g} fps: "
+          f"{tuple(per_frame.shape)} in {windows_s:.2f} s ({windows_s / n_frames * 1e3:.2f} ms "
+          f"a window); launches {launches}; {'ok' if ok else 'FAIL'}; {card}")
+    if not ok:
+        fail(f"encodec: latents {delta} of {scale}, codes equal {codes_equal} on "
+             f"{ok_frames.mean()}, shapes {tuple(codes.shape)} {tuple(per_frame.shape)}, "
+             f"launches {launches}")
+    return launches, dict(latent_err=delta, latent_scale=scale, decided=float(ok_frames.mean()),
+                          distinct_codes=distinct,
+                          encode_ms=enc_ms, windows_s=windows_s,
+                          ms_per_window=windows_s / n_frames * 1e3)
+
+
 def main():
     import argparse
 
@@ -3511,24 +4117,30 @@ def main():
         (out_dir / "chip_smoke_kernels.json").write_text(json.dumps(report, indent=1))
         print(f"kernels only: {len(FAILURES)} failure(s)")
         return 1 if FAILURES else 0
-    report["reference"] = phase_reference(torch)
-    report["steps_reference"] = phase_steps_reference(torch)
-    report["retina_reference"] = phase_retina_reference(torch)
-    report["mouth_reference"] = phase_mouth_reference(torch, card)
-    report["options_reference"] = phase_options_reference(torch)
-    launches, report["slice"] = phase_slice(torch, card)
-    torch.cuda.empty_cache()
+    phase_s = report["phase_s"] = {}
+
+    def timed(name, phase, *args):
+        """Run one phase, record its wall seconds, free the cached blocks."""
+        t = time.perf_counter()
+        out = phase(torch, *args)
+        phase_s[name] = time.perf_counter() - t
+        torch.cuda.empty_cache()
+        return out
+
+    report["reference"] = timed("reference", phase_reference)
+    report["steps_reference"] = timed("steps_reference", phase_steps_reference)
+    report["retina_reference"] = timed("retina_reference", phase_retina_reference)
+    report["mouth_reference"] = timed("mouth_reference", phase_mouth_reference, card)
+    report["options_reference"] = timed("options_reference", phase_options_reference)
+    launches, report["slice"] = timed("slice", phase_slice, card)
     (cli_launches, report["cli"], (cmd_launches, report["train_cmd"]),
      (opt_launches, report["infer_options"]),
-     (mesh_launches, report["infer_mesh"]), outputs) = phase_cli(torch, card)
-    torch.cuda.empty_cache()
-    report["train_reference"] = phase_train_reference(torch)
-    train_launches, report["train"] = phase_train(torch, card)
-    torch.cuda.empty_cache()
-    report["finetune_reference"] = phase_finetune_reference(torch)
-    report["gfpgan_reference"] = phase_gfpgan_reference(torch)
-    gfpgan_launches, report["gfpgan_train"] = phase_gfpgan_train(torch, card)
-    torch.cuda.empty_cache()
+     (mesh_launches, report["infer_mesh"]), outputs) = timed("cli", phase_cli, card)
+    report["train_reference"] = timed("train_reference", phase_train_reference)
+    train_launches, report["train"] = timed("train", phase_train, card)
+    report["finetune_reference"] = timed("finetune_reference", phase_finetune_reference)
+    report["gfpgan_reference"] = timed("gfpgan_reference", phase_gfpgan_reference)
+    gfpgan_launches, report["gfpgan_train"] = timed("gfpgan_train", phase_gfpgan_train, card)
     import shutil
     import tempfile
 
@@ -3537,29 +4149,28 @@ def main():
     work = Path(tempfile.mkdtemp(prefix="s2v_dist_"))
     init_nccl(torch, work)
     try:
-        t = time.perf_counter()
-        gan_dp_launches, report["gan_dp"] = phase_gan_dp(torch, card, work)
-        report["gan_dp"]["wall_s"] = time.perf_counter() - t
-        torch.cuda.empty_cache()
-        t = time.perf_counter()
-        report["arcface"] = phase_arcface(torch, card)
-        report["arcface"]["wall_s"] = time.perf_counter() - t
+        gan_dp_launches, report["gan_dp"] = timed("gan_dp", phase_gan_dp, card, work)
+        report["arcface"] = timed("arcface", phase_arcface, card)
     finally:
         dist.destroy_process_group()
         shutil.rmtree(work, ignore_errors=True)
-    torch.cuda.empty_cache()
-    t = time.perf_counter()
-    sr_launches, report["sr"] = phase_sr(torch, card, out_dir)
-    report["sr"]["wall_s"] = time.perf_counter() - t
-    torch.cuda.empty_cache()
-    t = time.perf_counter()
-    report["metrics"] = phase_metrics(torch, card, outputs, report["infer_mesh"])
-    report["metrics"]["wall_s"] = time.perf_counter() - t
-    print(f"phases 20-21: {report['sr']['wall_s']:.1f} s and {report['metrics']['wall_s']:.1f} s")
+    sr_launches, report["sr"] = timed("sr", phase_sr, card, out_dir)
+    report["metrics"] = timed("metrics", phase_metrics, card, outputs, report["infer_mesh"])
+    print(f"phases 20-21: {phase_s['sr']:.1f} s and {phase_s['metrics']:.1f} s")
+    report["face3d_reference"] = timed("face3d_reference", phase_face3d_reference)
+    face3d_launches, report["face3d_train"] = timed("face3d_train", phase_face3d_train, card)
+    expr_launches, report["expression_train"] = timed("expression_train",
+                                                      phase_expression_train, card)
+    codec_launches, report["encodec"] = timed("encodec", phase_encodec, card)
+    print("phases 22-25: " + ", ".join(f"{phase_s[k]:.1f}" for k in (
+        "face3d_reference", "face3d_train", "expression_train", "encodec")) + " s")
+    print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
     report["seconds"] = time.perf_counter() - t_start
     paths = dict(slice=launches, cli=cli_launches, infer_options=opt_launches,
                  infer_mesh=mesh_launches, train=train_launches, train_cmd=cmd_launches,
-                 gfpgan_train=gfpgan_launches, gan_dp=gan_dp_launches, sr=sr_launches)
+                 gfpgan_train=gfpgan_launches, gan_dp=gan_dp_launches, sr=sr_launches,
+                 face3d_train=face3d_launches, expression_train=expr_launches,
+                 encodec=codec_launches)
 
     def main_case(name, dtype):  # the first case at a main path's largest shape
         return next(c for c in cases if c["kernel"] == name and c["dtype"] == dtype)

@@ -722,3 +722,50 @@ def mobilefacenet_from_jax(variables) -> StateDict:
     _bn({"weight": p["head_weight"], "bias": p["head_bias"]},
         {"running_mean": s["head_mean"], "running_var": s["head_var"]}, "features.layers.3", sd)
     return sd
+
+
+def _wn_conv1d(d, prefix: str, sd: StateDict) -> None:
+    sd[f"{prefix}.weight"] = _t(conv1d_weight_from_kio(d["weight"]))
+    sd[f"{prefix}.bias"] = _t(d["bias"])
+
+
+def _seanet_from_jax(p, section: str, sd: StateDict, decoder: bool) -> None:
+    """One SEANet half: conv_in, res{i} with down{i} (encoder) or up{i}
+    (decoder), the LSTM layers, conv_out -> Meta's ``{section}.model.{i}``."""
+    n = sum(1 for k in p if k.startswith("res"))
+    lstm = 1 if decoder else 1 + 3 * n
+    _wn_conv1d(p["conv_in"], f"{section}.model.0.conv.conv", sd)
+    for i in range(n):
+        res = 4 + 3 * i if decoder else 1 + 3 * i
+        for name, key in (("conv1", "block.1"), ("conv2", "block.3"), ("shortcut", "shortcut")):
+            _wn_conv1d(p[f"res{i}"][name], f"{section}.model.{res}.{key}.conv.conv", sd)
+        if decoder:  # [k, out, in] -> ConvTranspose1d [in, out, k]
+            pre = f"{section}.model.{3 + 3 * i}.convtr.convtr"
+            sd[f"{pre}.weight"] = _t(np.ascontiguousarray(
+                np.transpose(np.asarray(p[f"up{i}_weight"]), (2, 1, 0))))
+            sd[f"{pre}.bias"] = _t(p[f"up{i}_bias"])
+        else:
+            _wn_conv1d(p[f"down{i}"], f"{section}.model.{3 + 3 * i}.conv.conv", sd)
+    layers = sorted(k for k in p if k.startswith("lstm"))
+    for l, name in enumerate(layers):
+        for w in ("weight_ih", "weight_hh"):
+            sd[f"{section}.model.{lstm}.lstm.{w}_l{l}"] = _t(linear_weight_from_dense(p[name][w]))
+        for bias in ("bias_ih", "bias_hh"):
+            sd[f"{section}.model.{lstm}.lstm.{bias}_l{l}"] = _t(p[name][bias])
+    _wn_conv1d(p["conv_out"], f"{section}.model.{3 * n + 3}.conv.conv", sd)
+
+
+def encodec_from_jax(variables) -> StateDict:
+    """s2v_tpu EncodecModel variables (or a SEANet half's, under
+    ``encoder`` / ``decoder``) -> Meta's EnCodec key names with plain conv
+    weights (``s2v_torch.models.encodec``), the inverse of
+    ``convert_encodec`` once weight norm is folded."""
+    p = variables["params"]
+    sd: StateDict = {}
+    for section in ("encoder", "decoder"):
+        if section in p:
+            _seanet_from_jax(p[section], section, sd, decoder=section == "decoder")
+    if "quantizer" in p:
+        for q, cb in enumerate(np.asarray(p["quantizer"]["codebooks"])):
+            sd[f"quantizer.vq.layers.{q}._codebook.embed"] = _t(cb)
+    return sd

@@ -739,3 +739,189 @@ def test_tile_process_on_the_card_matches_the_cpu(card):
         got = tile_process(model.to(card), x.to(card), 2, tile_size=32, tile_pad=4)
     assert got.shape == want.shape == (1, 3, 140, 100)
     assert (got.cpu() - want).abs().max().item() <= 1e-4
+
+
+def grid_face_data(n=16, seed=0):
+    """A face-sized height-field grid mesh with random BFM-shaped bases
+    (80 / 64 / 80 columns), its point_buf from the mesh's own adjacency."""
+    from s2v_torch.models.bfm import FaceModelData
+
+    rng = np.random.RandomState(seed)
+    gy, gx = np.mgrid[0:n, 0:n] / (n - 1.0) * 2 - 1
+    z = 0.5 * np.sqrt(np.clip(1.2 - gx ** 2 - gy ** 2, 0, None))
+    shape = np.stack([gx * 0.75, gy * 0.95, z], -1).reshape(-1, 3)
+    shape -= shape.mean(0)
+    quads = [(r * n + c, r * n + c + 1, (r + 1) * n + c, (r + 1) * n + c + 1)
+             for r in range(n - 1) for c in range(n - 1)]
+    faces = np.array([f for a, b, c, d in quads for f in ((a, c, b), (b, c, d))], np.int64)
+    point_buf = np.full((n * n, 8), len(faces), np.int64)
+    fill = np.zeros(n * n, np.int64)
+    for i, f in enumerate(faces):
+        for v in f:
+            if fill[v] < 8:
+                point_buf[v, fill[v]], fill[v] = i, fill[v] + 1
+    n3 = 3 * n * n
+    return FaceModelData(
+        mean_shape=shape.reshape(-1).astype(np.float32),
+        id_base=(rng.randn(n3, 80) * 0.02).astype(np.float32),
+        exp_base=(rng.randn(n3, 64) * 0.02).astype(np.float32),
+        mean_tex=(rng.rand(n3) * 100 + 120).astype(np.float32),
+        tex_base=(rng.randn(n3, 80) * 5).astype(np.float32),
+        face_buf=faces, point_buf=point_buf, keypoints=rng.choice(n * n, 68).astype(np.int64))
+
+
+def rel_l2(got, want):
+    got = torch.cat([g.detach().cpu().float().reshape(-1) for g in got])
+    want = torch.cat([w.detach().cpu().float().reshape(-1) for w in want])
+    return ((got - want).norm() / want.norm()).item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("candidates", [None, 500], ids=["one_chunk", "chunks"])
+def test_rasterize_on_the_card_matches_the_cpu(card, candidates, monkeypatch):
+    """``rasterize`` on random meshes (faces spanning the image, some with a
+    repeated vertex) and on the grid face at 224^2: the card's pass 1 is
+    the CPU's arithmetic, so masks and images are equal (images within
+    1e-5: the attribute sums' order); gradients within 1e-4 relative L2."""
+    from s2v_torch.models import bfm
+    from s2v_torch.models.bfm import ParametricFaceModel, rasterize
+
+    if candidates is not None:
+        monkeypatch.setattr(bfm, "CANDIDATES", candidates)
+    rng = np.random.RandomState(21)
+    verts = rng.randn(2, 30, 3).astype(np.float32)
+    verts[..., 2] += 10
+    cases = [(verts, rng.randint(0, 30, (40, 3)), rng.rand(2, 30, 3).astype(np.float32), 32)]
+    fm = ParametricFaceModel(grid_face_data(), device="cpu")
+    with torch.no_grad():
+        v, _, color, _ = fm.compute_for_render(torch.from_numpy(
+            rng.randn(2, 257).astype(np.float32) * 0.05))
+    cases.append((v.numpy(), fm.face_buf.numpy(), color.numpy(), 224))
+    for verts, faces, attrs, size in cases:
+        outs = []
+        for dev in (card, torch.device("cpu")):
+            vt = torch.tensor(verts, device=dev, requires_grad=True)
+            at = torch.tensor(attrs, device=dev, requires_grad=True)
+            img, mask = rasterize(vt, faces, at, size)
+            g = torch.from_numpy(np.random.RandomState(1).randn(*img.shape).astype(np.float32))
+            (img * g.to(dev)).sum().backward()
+            outs.append((img.detach().cpu(), mask.cpu(), vt.grad.cpu(), at.grad.cpu()))
+        (ic, mc, vc, ac), (ip, mp, vp, ap) = outs
+        assert mp.mean().item() > 0.05
+        assert torch.equal(mc, mp)
+        assert (ic - ip).abs().max().item() <= 1e-5
+        assert rel_l2([vc, ac], [vp, ap]) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_face3d_step_on_the_card_matches_the_cpu(card):
+    """One slim ``make_face3d_train_step`` step (ReconNet (1, 1, 1, 1) x16,
+    the grid face, batch 2 at 224^2, a channel-mean identity term) on the
+    card and on the CPU from one state: metrics within 1e-4 relative, the
+    clipped gradients within 1e-3 relative L2 and the running statistics
+    within 1e-4 (f32 without TF32; cuDNN's and the CPU's conv orders)."""
+    import copy
+
+    from s2v_torch.models.bfm import ParametricFaceModel
+    from s2v_torch.models.resnet import ReconNet
+    from s2v_torch.train.face3d_train import make_face3d_train_step
+
+    torch.manual_seed(22)
+    recon = ReconNet(layers=(1, 1, 1, 1), base_planes=16)
+    with torch.no_grad():
+        for head in recon.final_layers:
+            head.weight.mul_(0.1)
+    rng = np.random.RandomState(23)
+    data = grid_face_data()
+    batch = {"image": rng.rand(2, 224, 224, 3).astype(np.float32),
+             "gt_lm": (rng.rand(2, 68, 2) * 224).astype(np.float32),
+             "mask": (rng.rand(2, 224, 224, 1) > 0.2).astype(np.float32)}
+
+    def embed(x):
+        m = torch.tanh(x.mean((1, 2)) * 3.0 - 1.0)
+        return m / m.norm(dim=-1, keepdim=True)
+
+    runs = []
+    for dev in (card, torch.device("cpu")):
+        init_fn, step_fn = make_face3d_train_step(
+            ParametricFaceModel(data, device=dev), skin_mask=np.ones(256, np.float32),
+            id_embed_fn=embed, device=dev)
+        state = init_fn(recon=copy.deepcopy(recon))
+        state, m = step_fn(state, batch)
+        runs.append(({k: v.item() for k, v in m.items()},
+                     [p.grad for p in state.module.parameters()],
+                     [b for k, b in state.module.state_dict().items() if "running_" in k]))
+    (mc, gc, sc), (mp, gp, sp) = runs
+    for k in mp:
+        assert abs(mc[k] - mp[k]) <= 1e-4 * abs(mp[k]), k
+    assert rel_l2(gc, gp) <= 1e-3
+    assert all(rel_l2([a], [b]) <= 1e-4 for a, b in zip(sc, sp))
+
+
+class TinyCritic(torch.nn.Module):
+    """A SplitDiscriminator-shaped critic: two 4x4 stride-2 convs with
+    LeakyReLU 0.01, a 3x3 score head and an AU head."""
+
+    def __init__(self):
+        super().__init__()
+        self.main = torch.nn.Sequential(torch.nn.Conv2d(3, 8, 4, 2, 1), torch.nn.LeakyReLU(0.01),
+                                        torch.nn.Conv2d(8, 16, 4, 2, 1), torch.nn.LeakyReLU(0.01))
+        self.dis_top = torch.nn.Conv2d(16, 1, 3, 1, 1, bias=False)
+        self.aus_top = torch.nn.Conv2d(16, 17, 8, 1, bias=False)
+
+    def forward(self, x):
+        h = self.main(x)
+        return self.dis_top(h), self.aus_top(h).flatten(1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", ["ganimation", "stargan"])
+def test_expression_pair_on_the_card_matches_the_cpu(card, model):
+    """One d_step (the interpolation weight drawn from one CPU generator
+    seed on both) and one g_step of ``make_expression_trainer`` with a slim
+    SplitGenerator at 32^2: metrics within 1e-4 relative, the critic's and
+    the generator's gradients within 1e-3 relative L2."""
+    import copy
+
+    from s2v_torch.models.ganimation import SplitGenerator
+    from s2v_torch.train.ganimation_train import make_expression_trainer
+
+    torch.manual_seed(24)
+    gen, critic = SplitGenerator(ngf=8, n_blocks=1), TinyCritic()
+    rng = np.random.RandomState(25)
+    src = (rng.rand(4, 3, 32, 32) * 2 - 1).astype(np.float32)
+    aus = rng.rand(4, 17).astype(np.float32)
+    runs = []
+    for dev in (card, torch.device("cpu")):
+        g, d = copy.deepcopy(gen), copy.deepcopy(critic)
+        state, d_step, g_step = make_expression_trainer(g, d, model=model, device=dev)
+        state, dm = d_step(state, src, aus, aus[::-1].copy(), torch.Generator().manual_seed(26))
+        d_grads = [p.grad for p in d.parameters()]
+        state, gm = g_step(state, src, aus, aus[::-1].copy())
+        runs.append(({k: v.item() for k, v in {**dm, **gm}.items()}, d_grads,
+                     [p.grad for p in g.parameters() if p.grad is not None]))
+    (mc, dc, gc), (mp, dp, gp) = runs
+    for k in mp:
+        assert abs(mc[k] - mp[k]) <= 1e-4 * max(abs(mp[k]), 1e-6), k
+    assert rel_l2(dc, dp) <= 1e-3 and rel_l2(gc, gp) <= 1e-3
+
+
+@pytest.mark.cuda
+def test_encodec_encoder_on_the_card_matches_the_cpu(card):
+    """The full-width EnCodec encoder on 1 s of noise at 24 kHz, f32 without
+    TF32 (``EncodecModel.encode`` runs under ``full_f32``): latents within
+    1e-4 of their scale; the card's codes [1, 32, 75]."""
+    import copy
+
+    from s2v_torch.models.encodec import EncodecModel
+
+    torch.manual_seed(27)
+    model = EncodecModel().eval()
+    x = torch.from_numpy(np.random.RandomState(28).randn(1, 1, 24000).astype(np.float32) * 0.3)
+    with torch.no_grad():
+        want = model.encoder(x)
+        gpu = copy.deepcopy(model).to(card)
+        got = gpu.encoder(x.to(card)).cpu()
+        codes = gpu.encode(x.to(card))
+    assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item()
+    assert codes.shape == (1, 32, 75)

@@ -1,7 +1,8 @@
 """The port stands alone: importing every s2v_torch module pulls in neither
-jax nor s2v_tpu, no source of it imports Pillow (the card's machine has
-none), and its entry points refuse to run without a card unless the caller
-asks for the CPU."""
+jax nor s2v_tpu, its sources import Pillow only inside the few functions
+that read or write image files (the card's machine has Pillow too, but
+no inference path needs it), and its entry points refuse to run without a
+card unless the caller asks for the CPU."""
 
 import ast
 import pkgutil
@@ -33,9 +34,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
 def test_port_sources_import_pillow_only_for_the_jpeg_degradation():
     """Every import statement of the package, function-level ones included:
     Pillow appears only inside the training data chain's JPEG step, which
-    ``jpeg_range=None`` skips, and in the ArcFace data's JPEG decode and
-    synthetic-pack writer (the inference path, the 3DMM alignment
-    included, has none)."""
+    ``jpeg_range=None`` skips, in the ArcFace data's JPEG decode and
+    synthetic-pack writer, and in the face3d data preparation, which reads
+    image folders and writes mask PNGs (the inference path, the 3DMM
+    alignment included, has none)."""
     found = []
     for path in (REPO / "s2v_torch").rglob("*.py"):
         tree = ast.parse(path.read_text())
@@ -48,7 +50,8 @@ def test_port_sources_import_pillow_only_for_the_jpeg_degradation():
                 found.append((path.relative_to(REPO).as_posix(), owner.get(id(n))))
     assert set(found) == {("s2v_torch/prep/degradations.py", "add_jpg_compression"),
                           ("s2v_torch/train/arcface_data.py", "__getitem__"),
-                          ("s2v_torch/train/arcface_data.py", "write_synthetic_pack")}, found
+                          ("s2v_torch/train/arcface_data.py", "write_synthetic_pack"),
+                          ("s2v_torch/prep/face3d_data.py", "prepare_dataset")}, found
 
 
 def test_chip_smoke_imports_neither_jax_nor_the_jax_package():
@@ -74,3 +77,70 @@ def test_entry_points_raise_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("a card is present")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True)
+
+
+def _bfm():
+    import numpy as np
+
+    from s2v_torch.models.bfm import FaceModelData, ParametricFaceModel
+
+    z = np.zeros
+    data = FaceModelData(z(9, np.float32), z((9, 80), np.float32), z((9, 64), np.float32),
+                         z(9, np.float32), z((9, 80), np.float32), np.array([[0, 1, 2]]),
+                         z((3, 8), np.int64), z(68, np.int64))
+    return lambda device: ParametricFaceModel(data, device=device)
+
+
+def _face3d_step():
+    from s2v_torch.train.face3d_train import make_face3d_train_step
+
+    face_model = _bfm()("cpu")
+    return lambda device: make_face3d_train_step(face_model, device=device)
+
+
+def _expression_trainer():
+    from s2v_torch.models.ganimation import SplitGenerator
+    from s2v_torch.train.ganimation_train import make_expression_trainer
+
+    return lambda device: make_expression_trainer(SplitGenerator(ngf=4, n_blocks=1),
+                                                  SplitGenerator(ngf=4, n_blocks=1),
+                                                  device=device)
+
+
+def _encodec_codec():
+    from s2v_torch.models.encodec import EncodecCodec, EncodecModel
+
+    model = EncodecModel(n_q=1)
+    return lambda device: EncodecCodec(model, device=device)
+
+
+def _audio_to_codes():
+    import numpy as np
+
+    from s2v_torch.models.encodec import EncodecCodec, EncodecModel
+    from s2v_torch.prep.tools import audio_to_codes
+
+    model = EncodecModel(n_q=1)
+    wav = np.zeros(4800, np.float32)
+
+    def make(device):  # called as a user would, with no codec, when no device is named
+        codec = None if device is None else EncodecCodec(model, device=device)
+        return audio_to_codes(wav, 24000, 2, 25.0, codec=codec)
+
+    return make
+
+
+@pytest.mark.parametrize("build", [_bfm, _face3d_step, _expression_trainer, _encodec_codec,
+                                   _audio_to_codes],
+                         ids=["bfm", "face3d_step", "expression_trainer", "encodec_codec",
+                              "audio_to_codes"])
+def test_face3d_expression_and_codec_entry_points_refuse_to_run_without_a_card(build):
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    make = build()
+    for dev in (None, "cuda"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make(dev)
+    make("cpu")
