@@ -109,12 +109,10 @@ result line:
    1024x1024x3 uint8 out, K1 and K3 launched 38 and 27 times per frame,
    every face valid in Step 5, the mouth tail and the final stage, and an
    output within one gray level of the cold run's for all but 0.1% of its
-   subpixels. Then ``LipSyncPipeline.run`` three times more on the models
-   the last ``main`` loaded (the same checks), the third with the landmark
-   sweeps under torch.profiler. Printed: load_models seconds, each run's
-   wall and frames/s, per-step wall (synchronised at each step's ends),
-   peak memory, the allocator segments each run added, the profiled
-   sweep's top kernels.
+   subpixels. Then ``LipSyncPipeline.run`` once more on the models the
+   last ``main`` loaded (the same checks). Printed: load_models seconds,
+   each run's wall and frames/s, per-step wall (synchronised at each step's
+   ends), peak memory, the allocator segments each run added.
 9. train command: ``s2v_torch.cli.main(["train", ...,
    "--train.batch_size", "4", "--train.epochs", "3"])`` on the CLI phase's
    checkpoint directory, with a random torchvision-layout vgg16.pth added,
@@ -265,15 +263,41 @@ result line:
    ``audio_to_codes`` at 25 fps through ``EncodecCodec`` on the card: 250
    windows of 0.2 s give codes [250, 32, 15], no kernel launched; ms per
    10 s and per window (``phase_encodec``).
+26. harness, export, native: (a) ``s2v_torch.train.harness.Engines`` over
+   two engines, "gpen" (GPEN-BFR-512 at full width, a d_step then a g_step
+   at batch 4 on phase 18's batch, R1 at its step 0) and "expression"
+   (phase 24's full-width SplitGenerator and critic at batch 25, a d_step
+   then a g_step). Run A: 3 harness steps, a checkpoint every 2. Run B:
+   engines from other seeds, ``load()``: global step 2 and A's step-2 state
+   bit for bit (every parameter and buffer, G_ema, both Adams, ``step``),
+   then step 3 on A's batch with metrics and gradients within
+   ``GAN_DP_TOL['grads']`` of A's. K1/K2/K3 launches per harness step equal
+   ``expected_train_launches`` for its kind (no R1 after the resume). A
+   command file holding ``save@1``, then ``quit``, stops the expression
+   engine's loop at step 2 with checkpoints at 1 and 2; a third engine whose step allocates twice
+   the card's memory raises ``torch.OutOfMemoryError`` out of ``train``,
+   every engine's checkpoint at that global step on disk. ``ArtifactWriter``
+   writes a grid of the GPEN fakes (where Pillow imports), the curves and
+   ``index.html`` to chiprun_out/harness_artifacts (``phase_harness``).
+   (b) GPEN-BFR-512's FullGenerator (f32, batch 1) through ``torch.export``
+   into bytes, loaded and run on the card: within ``EXPORT_TOL`` of eager,
+   its ``s2v`` operator nodes and the loaded program's K1/K3 launches equal
+   to ``kernel_sites`` (``phase_export``). (c) the native loader built with
+   g++, 64 raw 512^2 frames streamed bit-equal by ``NativeClipReader``,
+   ``crop_resize_u8f32`` on a 1024^2 crop against its numpy version;
+   ``ResNetDepth`` at full width, 256^2, card vs CPU within ``DEPTH_TOL``;
+   the batched quad and perspective grids with ``warp_by_grid`` on the card
+   against the numpy grids on the CPU within one gray level
+   (``phase_native``).
 
 Every time printed stands beside the card's name and power limit (printed
 first). The line before the last is one JSON object with every kernel's
 numbers, its launches summed over the main paths (the inference slice, the
 CLI's cold run, the first opt-in infer run, the one-card mesh run, GPEN
 training, the train command, GFPGAN training, the one-rank data-parallel
-GPEN steps, the full-width SR generator's forward, and the face3d,
-expression and EnCodec runs, which launch none) and split by path; the
-last is
+GPEN steps, the full-width SR generator's forward, the face3d,
+expression and EnCodec runs, which launch none, phase 26's harness runs and
+the exported GPEN's forward) and split by path; the last is
 ``{"ok": true, "device": {...}}``. Details go to
 chiprun_out/chip_smoke.json. TF32 is off throughout (f32 convs and matmuls
 run in full f32; the pipeline keeps S3FD, FAN and ReconNet so regardless).
@@ -523,6 +547,50 @@ def phase_kernels(torch):
         if not ok:
             fail(f"{c['kernel']} {c['shape']} {c['dtype']} disagrees with its plain version")
     return cases
+
+
+HOST_CALLS, HOST_REPEATS = 200, 9
+
+
+def host_us(torch):
+    """Host microseconds per call of each kernel's wrapper: ``HOST_CALLS``
+    calls enqueued behind a spin kernel (so that the device never makes the
+    host wait), the median of ``HOST_REPEATS`` such batches; with no
+    gradient to record (inference) and, for K1 and K3, with one (training).
+    Small planes: the kernels'
+    own time does not matter here. Returns (median, least) a call."""
+    from s2v_torch.models.gpen import BLUR_TAPS, make_kernel
+    from s2v_torch.ops.kernels import (fused_bias_leaky_relu, fused_bias_leaky_relu_bwd,
+                                       upfirdn2d)
+
+    x = torch.randn(1, 64, 32, 32, device="cuda")
+    b = torch.randn(64, device="cuda")
+    xg = x.clone().requires_grad_(True)
+    out = fused_bias_leaky_relu(x, b)
+    fir = make_kernel(BLUR_TAPS)
+    calls = {"fused_act": lambda: fused_bias_leaky_relu(x, b),
+             "fused_act_bwd": lambda: fused_bias_leaky_relu_bwd(x, out, None),
+             "upfirdn2d": lambda: upfirdn2d(x, fir, 1, 1, (1, 1)),
+             "fused_act with grad": lambda: fused_bias_leaky_relu(xg, b),
+             "upfirdn2d with grad": lambda: upfirdn2d(xg, fir, 1, 1, (1, 1))}
+    res = {}
+    for name, fn in calls.items():
+        for _ in range(20):
+            fn()
+        batches = []
+        for _ in range(HOST_REPEATS):
+            torch.cuda.synchronize()
+            torch.cuda._sleep(SPIN_CYCLES)
+            t0 = time.perf_counter()
+            for _ in range(HOST_CALLS):
+                fn()
+            batches.append((time.perf_counter() - t0) / HOST_CALLS * 1e6)
+            torch.cuda.synchronize()
+        batches.sort()
+        res[name] = (batches[HOST_REPEATS // 2], batches[0])
+    print(f"host us per wrapper call (median / least of {HOST_REPEATS} x {HOST_CALLS} calls): "
+          + ", ".join(f"{k} {m:.2f} / {lo:.2f}" for k, (m, lo) in res.items()))
+    return res
 
 
 def train_kernel_cases(torch, g, tol):
@@ -1689,11 +1757,11 @@ def run_cli(torch, card, work, ckpt):
             "--checkpoint_dir", ckpt, "--tmp_dir", str(work / "tmp")]
     runs = []
 
-    def timed(label, fn, profile=None):
+    def timed(label, fn):
         calls.clear()
         for v in valid.values():
             v.clear()
-        clock["now"] = StepClock(torch, profile)
+        clock["now"] = StepClock(torch)
         torch.cuda.reset_peak_memory_stats()
         segments = torch.cuda.memory_stats().get("segment.all.allocated", 0)
         reset_launch_counts()
@@ -1708,21 +1776,17 @@ def run_cli(torch, card, work, ckpt):
                          valid={k: valid_count(v) for k, v in valid.items()},
                          peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
                          new_segments=torch.cuda.memory_stats().get("segment.all.allocated", 0)
-                         - segments, device_ms=dict(clock["now"].device_ms),
-                         top={k: [dict(name=n[:90], calls=c, ms=m) for n, c, m in rows[:8]]
-                              for k, rows in clock["now"].rows.items()}))
+                         - segments))
 
     try:
         for label, extra in (("cold", []), ("warm", []), ("re_preprocess", ["--re_preprocess"])):
             timed(label, lambda: (cli.main(argv + ["--outfile", str(work / f"{label}.npz"),
                                                    *extra]), loads[-1]))
-        # the warm run twice more on the models the last main() loaded: what
+        # the warm run once more on the models the last main() loaded: what
         # a run costs once the process has run one
         pipe = pipeline_cls(cli.parse_args(argv[1:]), last.pop("models"))
-        for i, profile in ((1, None), (2, None), (3, {"landmark_sweeps"})):
-            timed(f"warm, models loaded ({i})",
-                  lambda: (pipe.run(str(work / "clip.npz"), str(work / "speech.wav"),
-                                    str(work / f"loaded{i}.npz")), 0.0), profile)
+        timed("warm, models loaded", lambda: (pipe.run(
+            str(work / "clip.npz"), str(work / "speech.wav"), str(work / "loaded.npz")), 0.0))
         del pipe
     finally:
         cli.load_models = real_load
@@ -1743,7 +1807,7 @@ def run_cli(torch, card, work, ckpt):
                   "synthesize": 1}
     cached = {"landmark_sweeps": 1, "synthesize": 1}
     expect_calls = {"cold": recomputed, "re_preprocess": recomputed, "warm": cached,
-                    **{f"warm, models loaded ({i})": cached for i in (1, 2, 3)}}
+                    "warm, models loaded": cached}
     for r in runs:
         d = np.abs(r["frames"].astype(np.int32) - first.astype(np.int32))
         r["subpixels_off_by_more_than_1"] = int((d > 1).sum())
@@ -1757,11 +1821,6 @@ def run_cli(torch, card, work, ckpt):
               f"faces {r['valid']}; launches {r['launches']}; "
               f"{r['subpixels_differing']} subpixels differ from the cold run's "
               f"({r['subpixels_off_by_more_than_1']} by more than 1); {card}")
-        for step, rows in r["top"].items():
-            print(f"  {step} under torch.profiler: device {r['device_ms'][step]:.1f} ms, top "
-                  "kernels:")
-            for row in rows:
-                print(f"  {row['ms']:8.2f} ms {row['calls']:5d}x  {row['name']}")
         if r["calls"] != expect_calls[r["label"]]:
             fail(f"cli {r['label']} run called {r['calls']}, expected "
                  f"{expect_calls[r['label']]}")
@@ -4077,6 +4136,431 @@ def phase_encodec(torch, card):
                           ms_per_window=windows_s / n_frames * 1e3)
 
 
+HARNESS_STEPS, HARNESS_SAVE_EVERY = 3, 2
+EXPORT_TOL = 1e-5    # the exported GPEN against eager, of the eager output's largest magnitude
+DEPTH_TOL = 1e-4     # ResNetDepth card vs CPU, of the CPU output's largest magnitude
+
+
+def harness_engines(torch, seed, ckpt_dir, batch, log):
+    """Phase 26's two engines from ``seed``: "gpen", GPEN-BFR-512 at full
+    width (a d_step then a g_step at batch 4, R1 when its ``step % 16 ==
+    0``), and "expression", phase 24's SplitGenerator and critic at batch
+    25 (a d_step then a g_step; the penalty's weight from a generator
+    seeded by the batch). Each step appends the step kind, its metrics, its
+    launches and its synchronised ms to ``log``."""
+    from s2v_torch.ops.kernels import launch_counts
+    from s2v_torch.train.gan import make_gan_trainer
+    from s2v_torch.train.ganimation_train import make_expression_trainer
+    from s2v_torch.train.harness import Engine, Engines
+
+    g, d = gan_models(torch, 512, seed, channel_multiplier=2, narrow=1.0, style_dim=512, n_mlp=8)
+    gstate, gd_step, gg_step = make_gan_trainer(g, d, d_reg_every=16)
+    eg, ed = expression_models(torch, seed + 8, 128, 64, 6, 64, 6)
+    estate, ed_step, eg_step = make_expression_trainer(eg, ed)
+
+    def logged(name, fn):
+        def step(state, b):
+            before = launch_counts()
+            kind = ("d_r1" if state.step % 16 == 0 else "d") if name == "gpen" else "pair"
+            t0 = time.perf_counter()
+            state, m = fn(state, b)
+            torch.cuda.synchronize()
+            after = launch_counts()
+            log.append(dict(engine=name, kind=kind, ms=(time.perf_counter() - t0) * 1e3,
+                            metrics={k: float(v) for k, v in m.items()},
+                            launches={k: after[k] - before[k] for k in after}))
+            return state, m
+        return step
+
+    def gpen(state, b):
+        state, dm = gd_step(state, b)
+        state, gm = gg_step(state, b)
+        return state, {**dm, **gm}
+
+    def expression(state, b):
+        rng = torch.Generator("cuda").manual_seed(b["seed"])
+        state, dm = ed_step(state, *b["src"], rng)
+        state, gm = eg_step(state, *b["src"])
+        return state, {**dm, **gm}
+
+    return Engines({"gpen": Engine(gstate, logged("gpen", gpen), "gpen"),
+                    "expression": Engine(estate, logged("expression", expression),
+                                         "expression")}, checkpoint_dir=ckpt_dir)
+
+
+def harness_batches(batch, src, n, first=0, on_yield=None):
+    for k in range(first, n):
+        if on_yield is not None:
+            on_yield(k)
+        yield {"gpen": batch, "expression": {"src": src, "seed": 100 + k}}
+
+
+def same_tree(torch, got, want):
+    """Whether two ``state_tree``s are equal bit for bit (the number of
+    tensors compared, and the first path that differs)."""
+    n, where = 0, None
+
+    def walk(a, b, path):
+        nonlocal n, where
+        if where is not None:
+            return
+        if torch.is_tensor(b):
+            n += 1
+            if not (torch.is_tensor(a) and a.shape == b.shape and a.dtype == b.dtype
+                    and torch.equal(a, b)):
+                where = path
+        elif isinstance(b, dict):
+            if not isinstance(a, dict) or a.keys() != b.keys():
+                where = path
+                return
+            for k in b:
+                walk(a[k], b[k], f"{path}.{k}")
+        elif isinstance(b, (list, tuple)):
+            if len(a) != len(b):
+                where = path
+                return
+            for i, (x, y) in enumerate(zip(a, b)):
+                walk(x, y, f"{path}[{i}]")
+        elif a != b:
+            where = path
+
+    walk(got, want, "state")
+    return n, where
+
+
+def step_grads(torch, engines):
+    """The gradients the last harness step left: per engine, G's (its
+    g_step) then D's (its d_step), flattened."""
+    return {name: [torch.cat([p.grad.reshape(-1) for p in net.parameters()
+                              if p.grad is not None]).cpu()
+                   for net in (eng.state.g, eng.state.d)] for name, eng in engines.items()}
+
+
+def phase_harness(torch, card, out_dir):
+    """Phase 26, first part: the training harness (``s2v_torch.train.harness``)
+    over two full-width engines, whole-state checkpoints and resume, the
+    command file, save-on-failure with an out-of-memory step, and the
+    training artifacts."""
+    import shutil
+    import tempfile
+
+    from s2v_torch.ops.kernels import launch_counts, reset_launch_counts
+    from s2v_torch.train.gan import expected_train_launches
+    from s2v_torch.train.harness import Engine, Engines, train
+    from s2v_torch.utils.artifacts import ArtifactWriter
+    from s2v_torch.utils.checkpoint import TrainCheckpointer, state_tree
+
+    work = Path(tempfile.mkdtemp(prefix="s2v_harness_"))
+    report = {}
+    try:
+        batch = {k: torch.as_tensor(v).cuda() for k, v in gan_dp_batch(work).items()}
+        src = expression_batch(torch, EXPR_BATCH, 128, 6, "cuda")
+        # run A: 3 harness steps, a checkpoint at global step 2, its state
+        # kept on the host (the eval hook at step 2) to hold B's restore to
+        log_a, snap = [], {}
+        a = harness_engines(torch, 0, str(work / "ck"), batch, log_a)
+        want = expected_train_launches(a["gpen"].state.g, a["gpen"].state.d)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        train(a, harness_batches(batch, src, HARNESS_STEPS), save_every=HARNESS_SAVE_EVERY,
+              eval_every=HARNESS_SAVE_EVERY,
+              eval_fn=lambda e: snap.update({n: state_tree(x.state) for n, x in e.items()}),
+              max_steps=HARNESS_STEPS)
+        run_a_s = time.perf_counter() - t0
+        launches = launch_counts()
+        grads_a = step_grads(torch, a)
+        steps = sorted(TrainCheckpointer(str(work / "ck" / "gpen")).steps())
+        # run B: other seeds, then load(): step 2 back bit for bit, then step 3
+        log_b = []
+        b = harness_engines(torch, 5, str(work / "ck"), batch, log_b)
+        t0 = time.perf_counter()
+        loaded = b.load()
+        load_s = time.perf_counter() - t0
+        compared = {n: same_tree(torch, state_tree(x.state), snap[n]) for n, x in b.items()}
+        bitwise = all(where is None for _, where in compared.values())
+        reset_launch_counts()
+        train(b, harness_batches(batch, src, HARNESS_STEPS, first=loaded),
+              save_every=0, max_steps=HARNESS_STEPS)
+        launches_b = launch_counts()
+        grads_b = step_grads(torch, b)
+        last_a = {e["engine"]: e for e in log_a[-2:]}
+        last_b = {e["engine"]: e for e in log_b[-2:]}
+        metric_err = max(abs(last_b[n]["metrics"][k] - v) / max(abs(v), 1e-12)
+                         for n in last_a for k, v in last_a[n]["metrics"].items())
+        grad_err = max(rel_l2(grads_b[n], grads_a[n]) for n in grads_a)
+        resume_ok = (loaded == 2 and b.global_step == 3 and bitwise
+                     and b["gpen"].state.step == 3 and metric_err <= GAN_DP_TOL["grads"]
+                     and grad_err <= GAN_DP_TOL["grads"])
+        kinds = [e["kind"] for e in log_a + log_b if e["engine"] == "gpen"]
+        per_step = [e for e in log_a + log_b if e["engine"] == "gpen"]
+        launch_ok = (kinds == ["d_r1", "d", "d", "d"]
+                     and all(e["launches"] == {k: want[e["kind"]][k] + want["g"][k]
+                                               for k in want["g"]} for e in per_step)
+                     and all(not any(e["launches"].values())
+                             for e in log_a + log_b if e["engine"] == "expression"))
+        print(f"harness: GPEN-BFR-512 (batch 4, d_step + g_step) and the expression trainer "
+              f"(batch {EXPR_BATCH}, d_step + g_step) under Engines: run A "
+              f"{HARNESS_STEPS} steps in {run_a_s:.1f} s, checkpoints at {steps}; run B (other "
+              f"seeds) load() -> step {loaded} in {load_s:.1f} s, bit for bit "
+              + ", ".join(f"{n} {c[0]} tensors{'' if c[1] is None else ' differ at ' + c[1]}"
+                          for n, c in compared.items())
+              + f"; step 3 against A's: metrics {metric_err:.2e}, gradients {grad_err:.2e} "
+              f"relative (tol {GAN_DP_TOL['grads']}); GPEN steps {kinds}, ms "
+              + ", ".join(f"{e['ms']:.0f}" for e in per_step)
+              + f"; expression ms " + ", ".join(f"{e['ms']:.0f}" for e in log_a + log_b
+                                                if e["engine"] == "expression")
+              + f"; launches A {launches}, B {launches_b}; "
+              f"{'ok' if resume_ok and launch_ok else 'FAIL'}; {card}")
+        if not resume_ok:
+            fail(f"harness resume: step {loaded}, bit for bit {compared}, metrics {metric_err}, "
+                 f"gradients {grad_err}")
+        if not launch_ok:
+            fail(f"harness launches: kinds {kinds}, "
+                 f"{[e['launches'] for e in log_a + log_b]}, want {want}")
+        report.update(run_a_s=run_a_s, load_s=load_s, checkpoints=steps, loaded=loaded,
+                      compared=compared, metric_err=metric_err, grad_err=grad_err,
+                      launches=dict(a=launches, b=launches_b), steps=log_a + log_b)
+
+        # the command file: save@1, then quit (written as batch 2 is drawn);
+        # the expression engine alone (a GPEN checkpoint is 1.48 GB)
+        cmd = work / "command"
+        cmd.write_text("save@1")
+        c = Engines({"expression": a["expression"]}, checkpoint_dir=str(work / "cmd"))
+        drawn = []
+
+        def on_yield(k):
+            drawn.append(k)
+            if k == 1:
+                cmd.write_text("quit")
+
+        t0 = time.perf_counter()
+        train(c, ({"expression": bt["expression"]}
+                  for bt in harness_batches(batch, src, 10, on_yield=on_yield)),
+              save_every=0, command_file=str(cmd))
+        cmd_s = time.perf_counter() - t0
+        cmd_steps = {n: TrainCheckpointer(str(work / "cmd" / n)).steps() for n in c}
+        cmd_ok = (c.global_step == 2 and drawn == [0, 1]
+                  and all(v == [1, 2] for v in cmd_steps.values()))
+        print(f"harness command file: save@1 then quit: stopped at global step {c.global_step} "
+              f"after drawing batches {drawn} (the expression engine), checkpoints "
+              f"{cmd_steps}, {cmd_s:.1f} s; "
+              f"{'ok' if cmd_ok else 'FAIL'}")
+        if not cmd_ok:
+            fail(f"harness command file: step {c.global_step}, drawn {drawn}, {cmd_steps}")
+        shutil.rmtree(work / "cmd", ignore_errors=True)
+
+        # a third engine whose step allocates twice the card's memory
+        total = torch.cuda.get_device_properties(0).total_memory
+
+        def oom(state, _):
+            state["x"] = torch.empty(2 * total, dtype=torch.uint8, device="cuda")
+            return state, {}
+
+        f = Engines({**{n: e for n, e in b.items()},
+                     "oom": Engine({"x": torch.zeros(1, device="cuda")}, oom, "oom")},
+                    checkpoint_dir=str(work / "oom"))
+        f.global_step = b.global_step
+        raised = None
+        t0 = time.perf_counter()
+        try:
+            train(f, ({**bt, "oom": None} for bt in harness_batches(batch, src, 10)),
+                  save_every=0)
+        except torch.OutOfMemoryError as e:
+            raised = type(e).__name__
+        except Exception as e:  # anything else fails the check
+            raised = f"{type(e).__name__}: {e}"
+        oom_s = time.perf_counter() - t0
+        oom_steps = {n: TrainCheckpointer(str(work / "oom" / n)).steps() for n in f}
+        # saved on failure: the states as they stood, GPEN's one step past the
+        # label (it stepped before "oom" failed); mapped, not read
+        held = (torch.load(str(work / "oom" / "gpen" / "step_3.pt"), mmap=True,
+                           weights_only=True)["step"] if oom_steps["gpen"] == [3] else None)
+        oom_ok = (raised == "OutOfMemoryError" and all(v == [3] for v in oom_steps.values())
+                  and held == f["gpen"].state.step == 4)
+        print(f"harness out of memory: a third engine allocating {2 * total / 2 ** 30:.0f} GiB "
+              f"raised {raised} out of train at global step {f.global_step}; checkpoints "
+              f"{oom_steps}, GPEN's holding its state at step {held} (live "
+              f"{f['gpen'].state.step}), {oom_s:.1f} s; {'ok' if oom_ok else 'FAIL'}")
+        if not oom_ok:
+            fail(f"harness out of memory: raised {raised}, checkpoints {oom_steps}, GPEN's "
+                 f"saved step {held}, live {f['gpen'].state.step}")
+        report.update(command=dict(global_step=c.global_step, drawn=drawn, steps=cmd_steps,
+                                   seconds=cmd_s),
+                      oom=dict(raised=raised, steps=oom_steps, held_step=held,
+                               seconds=oom_s))
+
+        # the training artifacts of run B
+        writer = ArtifactWriter(str(out_dir / "harness_artifacts"), every=1)
+        for k, e in enumerate(log_a):  # two engines a global step
+            writer.scalars(k // 2 + 1, {f"{e['engine']}/{m}": v for m, v in e["metrics"].items()})
+        try:
+            import PIL  # noqa: F401
+            with torch.no_grad():
+                fakes = b["gpen"].state.g_ema(batch["lq"].permute(0, 3, 1, 2))
+            grid = writer.image_grid(3, "gpen_fakes", fakes.permute(0, 2, 3, 1).cpu().numpy(),
+                                     ncol=4, value_range=(-1.0, 1.0))
+            left = f"grid {Path(grid).relative_to(out_dir)}"
+        except ImportError:
+            left = "Pillow is not installed here, so image_grid was left out"
+        page = writer.webpage("phase 26 harness")
+        print(f"harness artifacts: {left}, curves and {Path(page).relative_to(out_dir)}")
+        report["artifacts"] = left
+        del a, b, c, f
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return {k: launches[k] + launches_b[k] for k in launches}, report
+
+
+def phase_export(torch, card):
+    """Phase 26, second part: GPEN-BFR-512's FullGenerator exported with
+    ``torch.export``, saved to bytes, loaded and run on the card."""
+    from s2v_torch.ops.kernels import launch_counts, reset_launch_counts
+    from s2v_torch.train.gan import kernel_sites
+    from s2v_torch.utils.export import export_program, load_exported, load_program, s2v_nodes
+
+    g, _ = gan_models(torch, 512, 0, channel_multiplier=2, narrow=1.0, style_dim=512, n_mlp=8)
+    g = g.cuda().eval()
+    x = torch.rand(1, 3, 512, 512, generator=torch.Generator().manual_seed(0)).cuda() * 2 - 1
+    t0 = time.perf_counter()
+    blob = export_program(g, (x,))
+    export_s = time.perf_counter() - t0
+    nodes = s2v_nodes(load_program(blob))
+    run = load_exported(blob)
+    with torch.no_grad():
+        want = g(x)
+    reset_launch_counts()
+    got = run(x)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    k1, k3 = kernel_sites(g)
+    scale = want.abs().max().item()
+    err = (got - want).abs().max().item()
+    with torch.no_grad():
+        eager_ms = wall_ms(torch, lambda: g(x))
+    exported_ms = wall_ms(torch, lambda: run(x))
+    reset_launch_counts()  # the timing runs' launches are not the path's
+    ok = (err <= EXPORT_TOL * scale and nodes == {"fused_act_fwd": k1, "upfirdn2d": k3}
+          and launches == {"fused_act": k1, "fused_act_bwd": 0, "upfirdn2d": k3})
+    print(f"export: GPEN-BFR-512 FullGenerator (f32, batch 1) exported in {export_s:.1f} s, "
+          f"{len(blob) / 2 ** 20:.1f} MiB; s2v nodes {nodes}, kernel_sites ({k1}, {k3}); the "
+          f"loaded program launched {launches}; exported vs eager {err:.2e} (scale "
+          f"{scale:.3f}, tol {EXPORT_TOL:g} of it); ms per forward eager {eager_ms:.2f}, "
+          f"exported {exported_ms:.2f}; {'ok' if ok else 'FAIL'}; {card}")
+    if not ok:
+        fail(f"export: err {err} of {scale}, nodes {nodes}, launches {launches}")
+    return launches, dict(export_s=export_s, blob_mib=len(blob) / 2 ** 20, nodes=nodes,
+                          err=err, scale=scale, eager_ms=eager_ms, exported_ms=exported_ms)
+
+
+def phase_native(torch, card):
+    """Phase 26, third part: the native loader (g++ build, the ring reader,
+    crop-resize against its numpy version), ResNetDepth card vs CPU, and the
+    batched alignment grids with ``warp_by_grid`` and ``paste_back`` card vs
+    CPU."""
+    import tempfile
+
+    from s2v_torch.io import native
+    from s2v_torch.models.resnet import ResNetDepth
+    from s2v_torch.pipeline import align
+
+    report = {}
+    t0 = time.perf_counter()
+    native.build()
+    build_s = time.perf_counter() - t0
+    rng = np.random.RandomState(26)
+    frames = rng.randint(0, 256, (64, 512, 512, 3), dtype=np.uint8)
+    with tempfile.TemporaryDirectory() as tmp:
+        raw = Path(tmp) / "clip.raw"
+        raw.write_bytes(frames.tobytes())
+        reader = native.NativeClipReader(str(raw), 512, 512, slots=8)
+        t0 = time.perf_counter()
+        got = list(reader)
+        read_s = time.perf_counter() - t0
+        reader.close()
+    stream_ok = len(got) == 64 and np.array_equal(np.stack(got), frames)
+    frame = rng.randint(0, 256, (1100, 1200, 3), dtype=np.uint8)
+    box, out_hw = (40, 1064, 100, 1124), (512, 512)
+    fast = native.crop_resize_u8f32(frame, box, out_hw, 1 / 255)
+    plain = native.crop_resize_u8f32_plain(frame, box, out_hw, 1 / 255)
+    native_ms = min(_host_ms(lambda: native.crop_resize_u8f32(frame, box, out_hw, 1 / 255))
+                    for _ in range(3))
+    plain_ms = min(_host_ms(lambda: native.crop_resize_u8f32_plain(frame, box, out_hw, 1 / 255))
+                   for _ in range(3))
+    crop_err = float(np.abs(fast - plain).max())
+    native_ok = stream_ok and crop_err <= 1e-6
+    print(f"native: g++ build {build_s:.2f} s; NativeClipReader streamed {len(got)} raw 512^2 "
+          f"RGB frames in {read_s * 1e3:.1f} ms, bit-equal {stream_ok}; crop_resize_u8f32 of a "
+          f"1024^2 crop to 512^2: native {native_ms:.2f} ms, plain (numpy) {plain_ms:.2f} ms, "
+          f"apart {crop_err:.1e} (tol 1e-6); {'ok' if native_ok else 'FAIL'}")
+    if not native_ok:
+        fail(f"native: stream {stream_ok}, crop-resize {crop_err}")
+    report.update(build_s=build_s, read_ms=read_s * 1e3, stream_ok=stream_ok,
+                  crop_native_ms=native_ms, crop_plain_ms=plain_ms, crop_err=crop_err)
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        depth = ResNetDepth().eval()
+    x = torch.from_numpy(rng.uniform(-1, 1, (2, 71, 256, 256)).astype(np.float32))
+    with torch.no_grad():
+        want = depth(x)
+        depth = depth.cuda()
+        got = depth(x.cuda()).cpu()
+        x7 = torch.randn(7, 71, 256, 256, device="cuda")
+        depth_ms = event_ms(torch, depth, (x7,), iters=5)
+    scale = want.abs().max().item()
+    depth_err = (got - want).abs().max().item()
+    depth_ok = depth_err <= DEPTH_TOL * scale
+    print(f"resnet depth: ResNetDepth (ResNet-152 over 71 channels, 68-wide fc) at 256^2, batch "
+          f"2, card vs CPU {depth_err:.2e} (scale {scale:.3f}, tol {DEPTH_TOL:g} of it); "
+          f"{depth_ms:.2f} ms per forward at batch 7; {'ok' if depth_ok else 'FAIL'}; {card}")
+    if not depth_ok:
+        fail(f"resnet depth: card vs CPU {depth_err} of {scale}")
+    report.update(depth_err=depth_err, depth_scale=scale, depth_ms_b7=depth_ms)
+    del depth, x7
+
+    n, size, out = 7, 512, 256
+    images = torch.from_numpy(rng.randint(0, 256, (n, 3, size, size)).astype(np.float32))
+    c = size / 2 + rng.uniform(-20, 20, (n, 1, 2))
+    vx = rng.uniform(120, 160, (n, 1, 2)) * np.array([1.0, 0.15])
+    vy = np.flip(vx, -1) * np.array([-1.0, 1.0])
+    quads = np.concatenate([c - vx - vy, c - vx + vy, c + vx + vy, c + vx - vy], 1)
+    corners = np.array([[0, 0], [0, out - 1], [out - 1, out - 1], [out - 1, 0]], np.float64)
+    coeffs = np.stack([align.calc_alignment_coefficients(q, corners) for q in quads])
+    warp_err, paste_err = {}, {}
+    for kind, batched, host in (
+            ("quad", lambda d: align.quad_grids_batched(torch.from_numpy(quads).to(d), out,
+                                                        (size, size)),
+             lambda: np.stack([align.quad_sample_grid(q, out, (size, size)) for q in quads])),
+            ("perspective",
+             lambda d: align.perspective_grids_batched(torch.from_numpy(coeffs).to(d),
+                                                       (out, out), (size, size)),
+             lambda: np.stack([align.perspective_sample_grid(cf, (out, out), (size, size))
+                               for cf in coeffs]))):
+        card_out = align.warp_by_grid(images.cuda(), batched("cuda")).cpu()
+        cpu_out = align.warp_by_grid(images, torch.from_numpy(host()))
+        mask, orig = (card_out > 0).float(), images[:, :, :out, :out]
+        pasted = align.paste_back(card_out.cuda(), mask.cuda(), orig.cuda()).cpu()
+        warp_err[kind] = (card_out - cpu_out).abs().max().item()
+        # a NaN or Inf on the card makes the difference NaN, which fails
+        paste_err[kind] = (pasted - align.paste_back(cpu_out, mask, orig)).abs().max().item()
+    warp_ok = all(v <= 1.0 for v in (*warp_err.values(), *paste_err.values()))
+    print(f"align grids: quad_grids_batched and perspective_grids_batched with warp_by_grid and "
+          f"paste_back on the card ({n} frames {size}^2 -> {out}^2) against the numpy grids on "
+          f"the CPU: warp " + ", ".join(f"{k} {v:.3f}" for k, v in warp_err.items())
+          + ", pasted " + ", ".join(f"{k} {v:.3f}" for k, v in paste_err.items())
+          + f" gray levels (tol 1); {'ok' if warp_ok else 'FAIL'}")
+    if not warp_ok:
+        fail(f"align grids: warp {warp_err}, pasted {paste_err}")
+    report.update(warp_err=warp_err, paste_err=paste_err)
+    return report
+
+
+def _host_ms(fn):
+    t0 = time.perf_counter()
+    fn()
+    return (time.perf_counter() - t0) * 1e3
+
+
 def main():
     import argparse
 
@@ -4111,6 +4595,7 @@ def main():
     report = {"card": card, "build_s": phase_build()}
     cases = phase_kernels(torch)
     report["kernel_cases"] = cases
+    report["host_us"] = host_us(torch)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     if args.kernels_only:
@@ -4164,13 +4649,18 @@ def main():
     codec_launches, report["encodec"] = timed("encodec", phase_encodec, card)
     print("phases 22-25: " + ", ".join(f"{phase_s[k]:.1f}" for k in (
         "face3d_reference", "face3d_train", "expression_train", "encodec")) + " s")
+    harness_launches, report["harness"] = timed("harness", phase_harness, card, out_dir)
+    export_launches, report["export"] = timed("export", phase_export, card)
+    report["native"] = timed("native", phase_native, card)
+    print("phase 26: harness {:.1f}, export {:.1f}, native {:.1f} s".format(
+        *(phase_s[k] for k in ("harness", "export", "native"))))
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
     report["seconds"] = time.perf_counter() - t_start
     paths = dict(slice=launches, cli=cli_launches, infer_options=opt_launches,
                  infer_mesh=mesh_launches, train=train_launches, train_cmd=cmd_launches,
                  gfpgan_train=gfpgan_launches, gan_dp=gan_dp_launches, sr=sr_launches,
                  face3d_train=face3d_launches, expression_train=expr_launches,
-                 encodec=codec_launches)
+                 encodec=codec_launches, harness=harness_launches, export=export_launches)
 
     def main_case(name, dtype):  # the first case at a main path's largest shape
         return next(c for c in cases if c["kernel"] == name and c["dtype"] == dtype)

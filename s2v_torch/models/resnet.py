@@ -1,11 +1,13 @@
 """torchvision-convention ResNet with Bottleneck blocks and the
-Deep3DFaceRecon coefficient regressor on it (reference:
-third_part/face3d/models/networks.py:69-104, 160-440), NCHW.
+Deep3DFaceRecon coefficient regressor and FAN's depth regressor on it
+(reference: third_part/face3d/models/networks.py:69-104, 160-440;
+third_part/face_detection/models.py:204-262), NCHW.
 
 Module names follow torchvision (``layer{n}.{b}``, ``downsample.0/1``) and
 networks.py (``backbone``, ``final_layers``), so the ``net_recon`` entry of
 ``face3d_pretrain_epoch_20.pth`` loads as it is, and so does the ``body.*``
-part of ``RetinaFace-R50.pth`` (``return_stages``).
+part of ``RetinaFace-R50.pth`` (``return_stages``) and FAN's ``depth.pth``
+(``ResNetDepth``).
 """
 
 from __future__ import annotations
@@ -51,10 +53,10 @@ class ResNet(nn.Module):
     stage's output (layer1..layer4: the maps RetinaFace's FPN taps)."""
 
     def __init__(self, layers: Sequence[int] = (3, 4, 6, 3), base_planes: int = 64,
-                 return_stages: bool = False):
+                 return_stages: bool = False, in_channels: int = 3):
         super().__init__()
         self.return_stages = return_stages
-        self.conv1 = nn.Conv2d(3, base_planes, 7, 2, 3, bias=False)
+        self.conv1 = nn.Conv2d(in_channels, base_planes, 7, 2, 3, bias=False)
         self.bn1 = nn.BatchNorm2d(base_planes)
         self.maxpool = nn.MaxPool2d(3, 2, 1)  # pads with -inf
         inplanes, planes = base_planes, base_planes
@@ -96,6 +98,23 @@ class ReconNet(nn.Module):
     def forward(self, x):
         feat = self.backbone(x)
         return torch.cat([head(feat) for head in self.final_layers], 1).flatten(1)
+
+
+class ResNetDepth(ResNet):
+    """FAN's 3D-landmark depth regressor (face_detection/models.py:204-262):
+    a bottleneck ResNet-152 ([3, 8, 36, 3]) over a 71-channel input (RGB and
+    the 68 landmark heatmaps), a fixed ``AvgPool2d(7)`` (not adaptive: on a
+    256^2 input the last 8^2 map is pooled over its top-left 7x7 window)
+    and a 68-wide ``fc``. Keys as the reference's (``conv1``, ``layer*``,
+    ``fc``)."""
+
+    def __init__(self, num_classes: int = 68):
+        super().__init__((3, 8, 36, 3), return_stages=True, in_channels=3 + 68)
+        self.fc = nn.Linear(self.out_channels, num_classes)
+
+    def forward(self, x):
+        feat = F.avg_pool2d(super().forward(x)[-1], 7)
+        return self.fc(feat.flatten(1))
 
 
 def recon_arch(state_dict) -> ReconNet:

@@ -4,7 +4,10 @@
 ``launches`` count that rises by one per kernel launch (never for the plain
 CPU version), so a run can show that it went through the kernels:
 ``fused_act`` K1, ``fused_act_bwd`` K2, ``upfirdn2d`` K3 (forward and
-backward launches alike).
+backward launches alike). Each kernel is also an operator of the ``s2v``
+namespace (``torch.ops.s2v.fused_act_fwd``, ``fused_act_bwd``,
+``upfirdn2d``; ``_ops.py``), defined when this package is imported, so
+``torch.export`` keeps the kernels in an exported program.
 """
 
 from s2v_torch.ops.kernels.fused_act import (  # noqa: F401

@@ -16,11 +16,13 @@ The StyleGAN2 activation used throughout GPEN (EqualLinear with
 ``torch.autograd.Function`` whose forward is K1, whose backward is a second
 Function (K2 plus the ``dbias`` reduction, left to PyTorch as the JAX package
 leaves it to XLA), and whose double backward is K2 with the incoming
-``dbias`` gradient as ``b``. Each wrapper launches its kernel on a CUDA
-tensor and runs its plain PyTorch version on a CPU tensor, recording no
-autograd graph either way, so the CPU tests exercise the Functions'
-wiring. Layout is channels at dim 1 (NCHW, or ``[B, C]`` for linear
-outputs).
+``dbias`` gradient as ``b``. Each kernel is an operator of the ``s2v``
+namespace (``s2v::fused_act_fwd``, ``s2v::fused_act_bwd``; ``_ops.py``):
+its CUDA implementation launches the kernel, its CPU implementation runs
+the plain PyTorch version, and neither records an autograd graph, so the
+CPU tests exercise the Functions' wiring and ``torch.export`` keeps the
+operators in its graph. Layout is channels at dim 1 (NCHW, or
+``[B, C]`` for linear outputs).
 """
 
 from __future__ import annotations
@@ -32,7 +34,7 @@ from typing import Optional
 import torch
 from torch.autograd.function import once_differentiable
 
-from s2v_torch.ops.kernels import _build
+from s2v_torch.ops.kernels import _build, _ops
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -73,9 +75,14 @@ def _launcher(name: str, argtypes):
     return fn
 
 
-def _check(name: str, x: torch.Tensor, bias: Optional[torch.Tensor]) -> None:
-    if x.device.type != "cuda":
+def _on_a_device(name: str, x: torch.Tensor) -> None:
+    """The operators have a CUDA and a CPU implementation and nothing else
+    (a meta tensor would reach the fake one)."""
+    if x.device.type not in ("cuda", "cpu"):
         raise ValueError(f"{name}: no kernel for {x.device}")
+
+
+def _check(name: str, x: torch.Tensor, bias: Optional[torch.Tensor]) -> None:
     if x.dtype not in _DTYPES:
         raise TypeError(f"{name}: dtype {x.dtype} not supported")
     if x.dim() < 2 or (bias is not None and bias.shape != (x.shape[1],)):
@@ -88,14 +95,9 @@ def _f32_bias(bias: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return bias.detach().to(device=x.device, dtype=torch.float32).contiguous()
 
 
-def fused_bias_leaky_relu_fwd(x: torch.Tensor, bias: torch.Tensor,
-                              negative_slope: float = 0.2,
-                              scale: float = 2 ** 0.5) -> torch.Tensor:
-    """K1 (no autograd): x [B, C, ...] f32 or bf16; bias [C]. Returns a
-    tensor like x."""
-    if x.device.type == "cpu":
-        with torch.no_grad():  # records no graph, as the kernel records none
-            return fused_bias_leaky_relu_plain(x, bias, negative_slope, scale)
+def _fwd_cuda(x: torch.Tensor, bias: torch.Tensor, negative_slope: float,
+              scale: float) -> torch.Tensor:
+    """K1's launch: the CUDA implementation of ``s2v::fused_act_fwd``."""
     _check("fused_bias_leaky_relu", x, bias)
     x = x.contiguous()
     b = _f32_bias(bias, x)
@@ -105,23 +107,22 @@ def fused_bias_leaky_relu_fwd(x: torch.Tensor, bias: torch.Tensor,
                     ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
                     ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
     rc = fn(x.data_ptr(), b.data_ptr(), out.data_ptr(), x.shape[0], x.shape[1],
-            math.prod(x.shape[2:]), _DTYPES[x.dtype], float(negative_slope),
-            float(scale), torch.cuda.current_stream(x.device).cuda_stream)
+            math.prod(x.shape[2:]), _DTYPES[x.dtype], negative_slope, scale,
+            torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"fused_bias_leaky_relu: CUDA launch error {rc}")
     fused_bias_leaky_relu.launches += 1
     return out
 
 
-def fused_bias_leaky_relu_bwd(g: torch.Tensor, out: torch.Tensor,
-                              bias: Optional[torch.Tensor] = None,
-                              negative_slope: float = 0.2,
-                              scale: float = 2 ** 0.5) -> torch.Tensor:
-    """K2 (no autograd): g and out [B, C, ...] of one dtype (f32 or bf16) and
-    shape; bias None or [C]. Returns dx like g."""
-    if g.device.type == "cpu":
-        with torch.no_grad():
-            return fused_bias_leaky_relu_bwd_plain(g, out, bias, negative_slope, scale)
+def _fwd_cpu(x, bias, negative_slope, scale):
+    with torch.no_grad():  # records no graph, as the kernel records none
+        return fused_bias_leaky_relu_plain(x, bias, negative_slope, scale)
+
+
+def _bwd_cuda(g: torch.Tensor, out: torch.Tensor, bias: Optional[torch.Tensor],
+              negative_slope: float, scale: float) -> torch.Tensor:
+    """K2's launch: the CUDA implementation of ``s2v::fused_act_bwd``."""
     _check("fused_bias_leaky_relu_bwd", g, bias)
     if out.shape != g.shape or out.dtype != g.dtype or out.device != g.device:
         raise ValueError(f"fused_bias_leaky_relu_bwd: g {tuple(g.shape)} {g.dtype} "
@@ -136,12 +137,50 @@ def fused_bias_leaky_relu_bwd(g: torch.Tensor, out: torch.Tensor,
                     ctypes.c_float, ctypes.c_void_p])
     rc = fn(g.data_ptr(), out.data_ptr(), None if b is None else b.data_ptr(),
             dx.data_ptr(), g.shape[0], g.shape[1], math.prod(g.shape[2:]),
-            _DTYPES[g.dtype], float(scale), float(scale * negative_slope),
+            _DTYPES[g.dtype], scale, scale * negative_slope,
             torch.cuda.current_stream(g.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"fused_bias_leaky_relu_bwd: CUDA launch error {rc}")
     fused_bias_leaky_relu_bwd.launches += 1
     return dx
+
+
+def _bwd_cpu(g, out, bias, negative_slope, scale):
+    with torch.no_grad():
+        return fused_bias_leaky_relu_bwd_plain(g, out, bias, negative_slope, scale)
+
+
+def _like(x: torch.Tensor, *_) -> torch.Tensor:
+    """The operators' fake implementation: a contiguous tensor like x."""
+    return torch.empty_like(x, memory_format=torch.contiguous_format)
+
+
+_FWD = _ops.define(
+    "fused_act_fwd(Tensor x, Tensor bias, float negative_slope, float scale) -> Tensor",
+    _fwd_cuda, _fwd_cpu, _like)
+_BWD = _ops.define(
+    "fused_act_bwd(Tensor g, Tensor out, Tensor? bias, float negative_slope, float scale)"
+    " -> Tensor",
+    _bwd_cuda, _bwd_cpu, _like)
+
+
+def fused_bias_leaky_relu_fwd(x: torch.Tensor, bias: torch.Tensor,
+                              negative_slope: float = 0.2,
+                              scale: float = 2 ** 0.5) -> torch.Tensor:
+    """K1 (no autograd): x [B, C, ...] f32 or bf16; bias [C]. Returns a
+    tensor like x."""
+    _on_a_device("fused_bias_leaky_relu", x)
+    return _FWD(x, bias, float(negative_slope), float(scale))
+
+
+def fused_bias_leaky_relu_bwd(g: torch.Tensor, out: torch.Tensor,
+                              bias: Optional[torch.Tensor] = None,
+                              negative_slope: float = 0.2,
+                              scale: float = 2 ** 0.5) -> torch.Tensor:
+    """K2 (no autograd): g and out [B, C, ...] of one dtype (f32 or bf16) and
+    shape; bias None or [C]. Returns dx like g."""
+    _on_a_device("fused_bias_leaky_relu_bwd", g)
+    return _BWD(g, out, bias, float(negative_slope), float(scale))
 
 
 class FusedActBackward(torch.autograd.Function):

@@ -15,6 +15,12 @@ upfirdn2d (GPEN's ``UpFirDn2dBackward``): the flipped FIR, ``up`` and
 that gives back the input's size. The backward calls the Function itself, so
 the double backward (R1) is K3 again with the original parameters. Backward
 launches count on K3's counter.
+
+K3 is the operator ``s2v::upfirdn2d`` (``_ops.py``): its CUDA
+implementation launches the kernel, its CPU implementation runs the plain
+version, and its fake implementation gives the output's shape, so
+``torch.export`` keeps it in its graph. The FIR travels as its taps in row
+order with its height and width.
 """
 
 from __future__ import annotations
@@ -26,7 +32,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from s2v_torch.ops.kernels import _build
+from s2v_torch.ops.kernels import _build, _ops
+from s2v_torch.ops.kernels.fused_act import _on_a_device
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 Pad = Tuple[int, int]
@@ -86,40 +93,62 @@ def _launcher():
     return _kernel
 
 
-def upfirdn2d_fwd(x: torch.Tensor, kernel, up: int, down: int, pad_y: Pad,
-                  pad_x: Pad) -> torch.Tensor:
-    """K3 (no autograd) with its own pads per axis: x [B, C, H, W] f32 or
-    bf16; kernel [kh, kw] FIR, kh, kw <= 4. Accumulates in f32; returns x's
-    dtype."""
-    if x.device.type == "cpu":
-        with torch.no_grad():  # records no graph, as the kernel records none
-            return upfirdn2d_plain(x, kernel, up, down, pad_y, pad_x)
-    if x.device.type != "cuda":
-        raise ValueError(f"upfirdn2d: no kernel for {x.device}")
+def _out_shape(x: torch.Tensor, kh: int, kw: int, up: int, down: int, py0: int, py1: int,
+               px0: int, px1: int) -> tuple:
+    b, c, h, w = x.shape
+    return (b, c, out_size(h, kh, up, down, (py0, py1)), out_size(w, kw, up, down, (px0, px1)))
+
+
+def _cuda(x: torch.Tensor, fir: list, kh: int, kw: int, up: int, down: int, py0: int,
+          py1: int, px0: int, px1: int) -> torch.Tensor:
+    """K3's launch: the CUDA implementation of ``s2v::upfirdn2d``."""
     if x.dtype not in _DTYPES:
         raise TypeError(f"upfirdn2d: dtype {x.dtype} not supported")
-    k = np.ascontiguousarray(np.asarray(kernel, np.float32)[::-1, ::-1])
-    if x.dim() != 4 or k.ndim != 2 or max(k.shape) > 4:
+    if x.dim() != 4 or max(kh, kw) > 4:
         raise ValueError(f"upfirdn2d: x {tuple(x.shape)} must be NCHW and the "
-                         f"FIR at most 4x4, got {k.shape}")
+                         f"FIR at most 4x4, got {(kh, kw)}")
     if up < 1 or down < 1:
         raise ValueError(f"upfirdn2d: up={up}, down={down} must be >= 1")
-    b, c, h, w = x.shape
-    kh, kw = k.shape
-    oh = out_size(h, kh, up, down, pad_y)
-    ow = out_size(w, kw, up, down, pad_x)
-    if oh < 1 or ow < 1:
-        raise ValueError(f"upfirdn2d: empty output {oh}x{ow}")
+    shape = _out_shape(x, kh, kw, up, down, py0, py1, px0, px1)
+    if shape[2] < 1 or shape[3] < 1:
+        raise ValueError(f"upfirdn2d: empty output {shape[2]}x{shape[3]}")
     x = x.contiguous()
-    out = torch.empty((b, c, oh, ow), dtype=x.dtype, device=x.device)
-    taps = (ctypes.c_float * k.size)(*k.ravel().tolist())
-    rc = _launcher()(x.data_ptr(), out.data_ptr(), b * c, h, w, oh, ow, up,
-                     down, pad_y[0], pad_x[0], kh, kw, taps, _DTYPES[x.dtype],
+    out = torch.empty(shape, dtype=x.dtype, device=x.device)
+    # the kernel correlates: it takes the flipped FIR
+    taps = (ctypes.c_float * (kh * kw))(*fir[::-1])
+    rc = _launcher()(x.data_ptr(), out.data_ptr(), shape[0] * shape[1], x.shape[2], x.shape[3],
+                     shape[2], shape[3], up, down, py0, px0, kh, kw, taps, _DTYPES[x.dtype],
                      torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"upfirdn2d: CUDA launch error {rc}")
     upfirdn2d.launches += 1
     return out
+
+
+def _cpu(x, fir, kh, kw, up, down, py0, py1, px0, px1):
+    with torch.no_grad():  # records no graph, as the kernel records none
+        return upfirdn2d_plain(x, np.reshape(fir, (kh, kw)), up, down, (py0, py1), (px0, px1))
+
+
+def _fake(x, fir, kh, kw, up, down, py0, py1, px0, px1):
+    return x.new_empty(_out_shape(x, kh, kw, up, down, py0, py1, px0, px1))
+
+
+_OP = _ops.define(
+    "upfirdn2d(Tensor x, float[] fir, int kh, int kw, int up, int down, int pad_y0, "
+    "int pad_y1, int pad_x0, int pad_x1) -> Tensor", _cuda, _cpu, _fake)
+
+
+def upfirdn2d_fwd(x: torch.Tensor, kernel, up: int, down: int, pad_y: Pad,
+                  pad_x: Pad) -> torch.Tensor:
+    """K3 (no autograd) with its own pads per axis: x [B, C, H, W] f32 or
+    bf16; kernel [kh, kw] FIR, kh, kw <= 4. Accumulates in f32; returns x's
+    dtype."""
+    _on_a_device("upfirdn2d", x)
+    k = np.asarray(kernel, np.float32)
+    if k.ndim != 2:
+        raise ValueError(f"upfirdn2d: the FIR must be 2-D, got {k.shape}")
+    return _OP(x, k.ravel().tolist(), k.shape[0], k.shape[1], up, down, *pad_y, *pad_x)
 
 
 class UpFirDn2d(torch.autograd.Function):

@@ -1,7 +1,8 @@
 """3DMM preprocessing on the host (reference:
 third_part/face3d/util/preprocess.py and util/load_mats.py): the POS
-similarity solve, the 5-point extraction, ``align_img`` and the BFM
-5-point landmarks.
+similarity solve, the 5-point extraction, ``align_img``, the BFM
+5-point landmarks, and the Umeyama similarity with ``estimate_norm``'s
+alignment to the ArcFace template.
 
 ``align_img`` resizes with Pillow's ``Image.resize(BICUBIC)`` and crops
 with ``Image.crop`` in the reference. Pillow is not a dependency of the
@@ -155,6 +156,58 @@ def align_img(img: np.ndarray, lm: np.ndarray, lm3d: np.ndarray,
 
     trans_params = np.array([w0, h0, s, t[0], t[1]], dtype=np.float32)
     return trans_params, img_new, lm_new
+
+
+def umeyama(src: np.ndarray, dst: np.ndarray, estimate_scale: bool = True) -> np.ndarray:
+    """Least-squares similarity transform (Umeyama 1991; skimage's
+    ``SimilarityTransform.estimate``, GPEN align_faces.py:25). src, dst
+    [N, 2]. Returns the 3x3 homogeneous matrix mapping src to dst (NaNs
+    when ``dst - mean`` against ``src - mean`` has rank 0)."""
+    num, dim = src.shape
+    src_mean, dst_mean = src.mean(axis=0), dst.mean(axis=0)
+    src_d, dst_d = src - src_mean, dst - dst_mean
+    a = dst_d.T @ src_d / num
+    d = np.ones((dim,))
+    if np.linalg.det(a) < 0:
+        d[dim - 1] = -1
+    t = np.eye(dim + 1)
+    u, s, v = np.linalg.svd(a)
+    rank = np.linalg.matrix_rank(a)
+    if rank == 0:
+        return t * np.nan
+    if rank == dim - 1 and np.linalg.det(u) * np.linalg.det(v) <= 0:
+        d_last = d[dim - 1]
+        d[dim - 1] = -1
+        t[:dim, :dim] = u @ np.diag(d) @ v
+        d[dim - 1] = d_last
+    elif rank == dim - 1:
+        t[:dim, :dim] = u @ v
+    else:
+        t[:dim, :dim] = u @ np.diag(d) @ v
+    scale = 1.0 / src_d.var(axis=0).sum() * (s @ d) if estimate_scale else 1.0
+    t[:dim, dim] = dst_mean - scale * (t[:dim, :dim] @ src_mean)
+    t[:dim, :dim] *= scale
+    return t
+
+
+# insightface's 112x112 template (preprocess.py:196-227 estimate_norm)
+ARCFACE_DST = np.array(
+    [[38.2946, 51.6963], [73.5318, 51.5014], [56.0252, 71.7366],
+     [41.5493, 92.3655], [70.7299, 92.2041]],
+    dtype=np.float32,
+)
+
+
+def estimate_norm(lm_68p: np.ndarray, height: float) -> np.ndarray:
+    """preprocess.py:196-227: the 5-point similarity to the ArcFace template
+    (y flipped to image coordinates; the identity where the solve fails).
+    Returns the [2, 3] affine."""
+    lm = extract_5p(lm_68p).copy()
+    lm[:, -1] = height - 1 - lm[:, -1]
+    m = umeyama(lm, ARCFACE_DST, True)
+    if not np.isfinite(m).all() or np.linalg.det(m) == 0:
+        m = np.eye(3)
+    return m[0:2]
 
 
 def load_lm3d(bfm_dir: str) -> np.ndarray:

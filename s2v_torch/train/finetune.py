@@ -30,6 +30,29 @@ class TrainState:
     opt: torch.optim.Optimizer
     step: int = 0
 
+    def checkpoint_tree(self) -> dict:
+        """What a checkpoint holds (``utils.checkpoint.state_tree``): what a
+        fine-tune changes, the trainable parameters (``requires_grad``), the
+        optimizer's state and the step; the frozen rest comes from the
+        model's own files."""
+        return {"step": int(self.step), "opt": self.opt.state_dict(),
+                "params": {k: p.detach() for k, p in self.module.named_parameters()
+                           if p.requires_grad}}
+
+    def load_checkpoint_tree(self, saved: dict) -> "TrainState":
+        """Loads ``checkpoint_tree``'s tree in place (every saved parameter
+        must exist in the module with its shape) and returns the state."""
+        own = dict(self.module.named_parameters())
+        missing = [k for k in saved["params"] if k not in own]
+        if missing:
+            raise KeyError(f"the checkpoint's parameters {missing} are not in the module")
+        with torch.no_grad():
+            for k, v in saved["params"].items():
+                own[k].copy_(v)
+        self.opt.load_state_dict(saved["opt"])
+        self.step = saved["step"]
+        return self
+
 
 def style_conv_mask(module: nn.Module) -> Dict[str, bool]:
     """Parameter name -> trainable: True exactly for names that contain

@@ -123,8 +123,8 @@ def finetune(enet: nn.Module, batches: Iterable[Dict[str, np.ndarray]], cfg, dev
                for b in batches]
     leader = is_leader()  # one log and one checkpoint for the whole group
     logger = ThroughputLogger(log_path if leader else None, every=10)
-    ckptr = (TrainCheckpointer(checkpoint_dir) if checkpoint_dir is not None and leader
-             else None)
+    ckptr = (TrainCheckpointer(checkpoint_dir, per_rank=False)
+             if checkpoint_dir is not None and leader else None)
     for epoch in range(cfg.epochs):
         for i, batch in enumerate(batches):
             state, metrics = step_fn(state, batch)

@@ -365,14 +365,15 @@ def fan_from_jax(variables) -> StateDict:
 
 def _resnet(bb, bs, prefix: str, sd: StateDict) -> None:
     """s2v_tpu ResNet (``layer{stage}_{block}`` trees) -> torchvision names
-    under ``prefix``."""
-    _conv(bb["conv1"], f"{prefix}.conv1", sd)
-    _bn(bb["bn1"], bs["bn1"], f"{prefix}.bn1", sd)
+    under ``prefix`` (none when empty)."""
+    prefix = f"{prefix}." if prefix else ""
+    _conv(bb["conv1"], f"{prefix}conv1", sd)
+    _bn(bb["bn1"], bs["bn1"], f"{prefix}bn1", sd)
     for name, d in bb.items():
         if not name.startswith("layer"):
             continue
         stage, block = name[len("layer"):].split("_")
-        pre = f"{prefix}.layer{stage}.{block}"
+        pre = f"{prefix}layer{stage}.{block}"
         for i in (1, 2, 3):
             _conv(d[f"conv{i}"], f"{pre}.conv{i}", sd)
             _bn(d[f"bn{i}"], bs[name][f"bn{i}"], f"{pre}.bn{i}", sd)
@@ -390,6 +391,16 @@ def recon_from_jax(variables) -> StateDict:
     for name, d in p.items():
         if name.startswith("head"):
             _conv(d, f"final_layers.{name[len('head'):]}", sd)
+    return sd
+
+
+def resnet_depth_from_jax(variables) -> StateDict:
+    """s2v_tpu ResNetDepth variables -> ResNetDepth state_dict (the
+    ``depth.pth`` layout of face_detection/models.py)."""
+    p, s = variables["params"], variables["batch_stats"]
+    sd: StateDict = {}
+    _resnet(p["backbone"], s["backbone"], "", sd)
+    _linear({"weight": p["fc_weight"], "bias": p["fc_bias"]}, "fc", sd)
     return sd
 
 

@@ -35,9 +35,13 @@
 - ``zero_opt=True`` (ZeRO-1 over the data group) trains like replicated
   state (1e-6 relative L2) while each rank holds part of the momentum, and
   both ranks' backbones stay bit-equal.
+- ``TrainCheckpointer`` in the same group: the class-shard and ZeRO-1
+  states saved per rank and restored bit for bit; another layout raises.
 """
 
 import io
+import os
+import re
 
 import numpy as np
 import pytest
@@ -49,6 +53,7 @@ import jax.numpy as jnp
 from s2v_torch.models import iresnet as TI
 from s2v_torch.train.arcface import make_arcface_trainer
 from s2v_torch.utils import weights as TW
+from s2v_torch.utils.checkpoint import TrainCheckpointer
 from s2v_tpu.models import iresnet as JI
 from s2v_tpu.parallel.mesh import make_mesh
 from s2v_tpu.train.arcface import make_arcface_trainer as jax_trainer
@@ -169,7 +174,8 @@ def runs(tmp_path_factory):
     assert spread[0][0] < 1e-5 and spread[1][0] < 2e-4
     assert spread[0][1] < 1.5e-3 and spread[1][1] < 5e-3
     refs = dict(layers=LAYERS, emb=EMB, classes=CLASSES, images=images, labels=labels,
-                sd=init["sd"], clf=init["clf"])
+                sd=init["sd"], clf=init["clf"],
+                ckpt_dir=str(tmp_path_factory.mktemp("arcface_ckpt")))
     ranks = torch_dist_ranks.spawn(torch_dist_ranks.arcface_ranks, 2,
                                    tmp_path_factory.mktemp("arcface_group"), refs)
     return refs, jax_runs, ranks, spread
@@ -253,3 +259,25 @@ def test_zero_opt_trains_like_replicated_state(runs):
                       np.concatenate([repl["states"][1]["sd"][k].ravel() for k in keys])) < 1e-6
         assert 0 < zero["state_numel"] < repl["state_numel"]
     assert sum(r["dp2_zero"]["state_numel"] for r in ranks) == ranks[0]["dp2"]["state_numel"]
+
+
+@pytest.mark.parametrize("layout", ["mp2", "dp2_zero"])
+def test_sharded_states_checkpoint_per_rank(runs, layout):
+    """``TrainCheckpointer`` in the two-rank group: each rank writes its own
+    file for the step (PartialFC's class shard at data 1 x model 2, the
+    ZeRO-1 momentum shard at data 2 x model 1) and restores it bit for bit
+    into a fresh state of the same layout; a state of the other layout
+    raises naming both, and so does a process outside the group."""
+    refs, _, ranks, _ = runs
+    other = {"mp2": rf"clf_weight is \({CLASSES}, {EMB}\), the checkpoint's "
+                    rf"\({CLASSES // 2}, {EMB}\)",
+             "dp2_zero": r"opt steps parameter groups of \[\d+\] tensors, the checkpoint's"}
+    for r in ranks:
+        ck = r[layout]["checkpoint"]
+        assert ck["bitwise"]
+        assert ck["files"] == ["step_2.rank0-of-2.pt", "step_2.rank1-of-2.pt"]
+        assert re.search(other[layout], ck["other_error"]), ck["other_error"]
+    ckpt = TrainCheckpointer(os.path.join(refs["ckpt_dir"], layout))
+    assert ckpt.latest_step() == 2
+    with pytest.raises(ValueError, match=r"saved by 2 ranks; this is rank 0 of 1"):
+        ckpt.restore({})

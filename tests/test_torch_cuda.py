@@ -13,7 +13,9 @@ after every operation). Gradients (backward and double backward through the
 autograd Functions, against PyTorch's autograd of the plain versions on the
 card): f32 1e-4 and bf16 2e-2 of the largest magnitude where it exceeds 1
 (second-order gradients are sums over many elements; bf16 rounds twice more
-on the plain side).
+on the plain side). The ``s2v`` operators pass ``torch.library.opcheck``
+on the card, and a slim GPEN exported with ``torch.export`` launches K1
+and K3 from the loaded program, within 1e-5 of eager.
 """
 
 import numpy as np
@@ -925,3 +927,47 @@ def test_encodec_encoder_on_the_card_matches_the_cpu(card):
         codes = gpu.encode(x.to(card))
     assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item()
     assert codes.shape == (1, 32, 75)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_operators_pass_opcheck_on_the_card(card, dtype):
+    """The three ``s2v`` operators' CUDA implementations against their
+    schemas and fake implementations (``torch.library.opcheck``: output
+    shape, dtype and device, no input mutated), with K3 up, down and a crop."""
+    g = torch.Generator(device=card).manual_seed(11)
+    x = torch.randn(2, 8, 41, 37, generator=g, device=card).to(dtype)
+    b = torch.randn(8, generator=g, device=card)
+    out = torch.ops.s2v.fused_act_fwd(x, b, 0.2, 2 ** 0.5)
+    fir = (blur_kernel([1, 3, 3, 1], 2)).ravel().tolist()
+    for op, args in ((torch.ops.s2v.fused_act_fwd.default, (x, b, 0.2, 2 ** 0.5)),
+                     (torch.ops.s2v.fused_act_bwd.default, (x, out, None, 0.2, 2 ** 0.5)),
+                     (torch.ops.s2v.fused_act_bwd.default, (x, out, b, 0.2, 2 ** 0.5)),
+                     (torch.ops.s2v.upfirdn2d.default, (x, fir, 4, 4, 2, 1, 2, 1, 2, 1)),
+                     (torch.ops.s2v.upfirdn2d.default, (x, fir, 4, 4, 1, 2, 1, 1, -1, 2))):
+        torch.library.opcheck(op, args, test_utils=("test_schema", "test_faketensor"))
+
+
+@pytest.mark.cuda
+def test_exported_gpen_launches_its_kernels_on_the_card(card):
+    """A slim GPEN generator exported on the card: the loaded program
+    launches K1 and K3 once per site (``kernel_sites``) and gives the eager
+    output within 1e-5 of its largest magnitude."""
+    from s2v_torch.models.gpen import FullGenerator
+    from s2v_torch.ops.kernels import reset_launch_counts
+    from s2v_torch.train.gan import kernel_sites
+    from s2v_torch.utils.export import export_program, load_exported
+
+    torch.manual_seed(0)
+    g = FullGenerator(size=64, style_dim=64, n_mlp=2, channel_multiplier=1,
+                      narrow=0.25).to(card).eval()
+    x = torch.rand(1, 3, 64, 64, device=card) * 2 - 1
+    run = load_exported(export_program(g, (x,)))
+    with torch.no_grad():
+        want = g(x)
+    reset_launch_counts()
+    got = run(x)
+    torch.cuda.synchronize()
+    k1, k3 = kernel_sites(g)
+    assert launch_counts() == {"fused_act": k1, "fused_act_bwd": 0, "upfirdn2d": k3}
+    assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()

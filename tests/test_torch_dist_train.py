@@ -29,8 +29,13 @@ first within rtol 1e-4 of the JAX step run with its batch sharded over a
 single-process ones after each step and bit-equal on both ranks; and
 ``finetune(mesh=...)``'s epoch loop over the global batch (each rank
 taking its shard) bit-equal to those two steps, and refusing a batch of 3,
-which two ranks cannot split evenly, before any step.
+which two ranks cannot split evenly, before any step. Its leader alone
+checkpoints the replicated state, one ``step_<n>.pt`` for the group
+(``TrainCheckpointer(per_rank=False)``), which restores in one process bit
+for bit.
 """
+
+import os
 
 import numpy as np
 import pytest
@@ -42,9 +47,11 @@ from jax.sharding import NamedSharding, PartitionSpec as P
 from s2v_torch.models.enet import ENet as TENet
 from s2v_torch.models.gpen import Discriminator as TDisc
 from s2v_torch.models.gpen import FullGenerator as TGPEN
+from s2v_torch.train import finetune as TF
 from s2v_torch.train import finetune_enet as TFE
 from s2v_torch.utils import config as t_cfg
 from s2v_torch.utils import weights as TW
+from s2v_torch.utils.checkpoint import TrainCheckpointer
 from s2v_tpu.models import ENet
 from s2v_tpu.models.gpen import Discriminator, FullGenerator
 from s2v_tpu.parallel.mesh import make_mesh
@@ -90,6 +97,7 @@ def runs(tmp_path_factory):
                 g_sd={k: v.numpy() for k, v in TW.gpen_from_jax(gv).items()},
                 d_sd={k: v.numpy() for k, v in TW.gpen_disc_from_jax(dv).items()},
                 enet_kw=ENET_KW, enet_batch=enet_batch,
+                enet_ckpt=str(tmp_path_factory.mktemp("enet_ckpt")),
                 enet_sd={k: v.numpy() for k, v in TW.enet_from_jax(ev).items()})
 
     # JAX: the sharded steps on a 2-device data mesh
@@ -129,6 +137,7 @@ def runs(tmp_path_factory):
     ranks = torch_dist_ranks.spawn(torch_dist_ranks.train_ranks, 2,
                                    tmp_path_factory.mktemp("train_group"), refs)
     return dict(ranks=ranks, single=single, jax_gan=jax_gan, single_enet=single_enet,
+                enet_ckpt=refs["enet_ckpt"],
                 jax_enet_metrics={k: float(v) for k, v in jax_enet_metrics.items()})
 
 
@@ -167,6 +176,17 @@ def test_enet_steps_match_the_full_batch_and_jax(runs):
         for key, value in runs["jax_enet_metrics"].items():
             np.testing.assert_allclose(enet["steps"][0]["metrics"][key], value, rtol=1e-4,
                                        err_msg=key)
+
+
+def test_finetune_leader_checkpoints_the_replica_once(runs):
+    assert sorted(os.listdir(runs["enet_ckpt"])) == ["step_1.pt", "step_2.pt"]
+    fresh = TENet(**ENET_KW)
+    restored = TrainCheckpointer(runs["enet_ckpt"]).restore(
+        TF.init_state(fresh, TF.make_optimizer(1e-3, fresh, TF.style_conv_mask)))
+    assert restored.step == 2
+    own = dict(fresh.named_parameters())
+    for k, v in runs["ranks"][0]["enet"]["finetune"]["params"].items():
+        np.testing.assert_array_equal(own[k].detach().numpy(), v, err_msg=k)
 
 
 def test_finetune_refuses_a_batch_the_data_axis_does_not_divide(runs):

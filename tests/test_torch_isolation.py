@@ -36,8 +36,9 @@ def test_port_sources_import_pillow_only_for_the_jpeg_degradation():
     Pillow appears only inside the training data chain's JPEG step, which
     ``jpeg_range=None`` skips, in the ArcFace data's JPEG decode and
     synthetic-pack writer, and in the face3d data preparation, which reads
-    image folders and writes mask PNGs (the inference path, the 3DMM
-    alignment included, has none)."""
+    image folders and writes mask PNGs, and in the training artifacts'
+    image grid (the inference path, the 3DMM alignment included, has
+    none)."""
     found = []
     for path in (REPO / "s2v_torch").rglob("*.py"):
         tree = ast.parse(path.read_text())
@@ -51,7 +52,8 @@ def test_port_sources_import_pillow_only_for_the_jpeg_degradation():
     assert set(found) == {("s2v_torch/prep/degradations.py", "add_jpg_compression"),
                           ("s2v_torch/train/arcface_data.py", "__getitem__"),
                           ("s2v_torch/train/arcface_data.py", "write_synthetic_pack"),
-                          ("s2v_torch/prep/face3d_data.py", "prepare_dataset")}, found
+                          ("s2v_torch/prep/face3d_data.py", "prepare_dataset"),
+                          ("s2v_torch/utils/artifacts.py", "image_grid")}, found
 
 
 def test_chip_smoke_imports_neither_jax_nor_the_jax_package():
@@ -71,7 +73,17 @@ def test_entry_points_raise_without_a_card():
             "    except RuntimeError:\n"
             "        continue\n"
             "    raise SystemExit('ran without a card')\n"
-            "assert resolve_device('cpu').type == 'cpu'\n")
+            "assert resolve_device('cpu').type == 'cpu'\n"
+            "import torch.nn as nn\n"
+            "from s2v_torch.utils.export import export_program, load_exported\n"
+            "blob = export_program(nn.Linear(2, 2), (torch.zeros(1, 2),))\n"
+            "for dev in (None, 'cuda'):\n"
+            "    try:\n"
+            "        load_exported(blob, dev)\n"
+            "    except RuntimeError:\n"
+            "        continue\n"
+            "    raise SystemExit('loaded an exported program without a card')\n"
+            "assert load_exported(blob, 'cpu')(torch.ones(1, 2)).shape == (1, 2)\n")
     import torch
 
     if torch.cuda.is_available():

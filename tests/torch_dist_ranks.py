@@ -155,7 +155,8 @@ def _flat_grads(module):
 def train_ranks(rank, world, refs):
     """GPEN step pairs 0-1 (R1 at 0, ``d_reg_every`` 2) and two ENet
     fine-tune steps, each rank on its shard of the batch; then the same two
-    steps through ``finetune``'s epoch loop."""
+    steps through ``finetune``'s epoch loop, whose leader checkpoints the
+    replicated state into ``refs["enet_ckpt"]``."""
     from s2v_torch.models.enet import ENet
     from s2v_torch.models.gpen import Discriminator, FullGenerator
     from s2v_torch.parallel.mesh import data_group, make_process_mesh, replicas_agree
@@ -185,7 +186,7 @@ def train_ranks(rank, world, refs):
     enet2 = ENet(**refs["enet_kw"])
     enet2.load_state_dict({k: torch.from_numpy(v) for k, v in refs["enet_sd"].items()})
     state = finetune(enet2, [refs["enet_batch"]], TrainConfig(lr=1e-3, epochs=2),
-                     device="cpu", mesh=mesh)
+                     device="cpu", mesh=mesh, checkpoint_dir=refs["enet_ckpt"])
     out["enet"]["finetune"] = dict(steps=state.step, params={
         k: _np(p) for k, p in enet2.named_parameters() if p.requires_grad})
     # a global batch of 3 that the two ranks cannot split evenly is refused
@@ -240,23 +241,66 @@ def run_gan(g, d, refs, shard=(0, 1), mesh=None):
 # ---------------------------------------------------------------------------
 
 
+def same_tree(a, b) -> bool:
+    """Whether two trees of tensors, dicts, lists and values are equal, the
+    tensors bit for bit."""
+    if torch.is_tensor(a):
+        return torch.is_tensor(b) and a.shape == b.shape and torch.equal(a, b)
+    if isinstance(a, dict):
+        return isinstance(b, dict) and a.keys() == b.keys() and all(
+            same_tree(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(same_tree(x, y) for x, y in zip(a, b))
+    return a == b
+
+
+def arcface_checkpoint(state, make, layout, ckpt_dir):
+    """Save this rank's ArcFace state at its step, restore it into a fresh
+    state of the same layout (another seed's backbone, the initial
+    classifier), and try it on a state of the other layout: whether the
+    restore is bit for bit, the files written, and the other layout's
+    error."""
+    from s2v_torch.utils.checkpoint import TrainCheckpointer, state_tree
+
+    ck = TrainCheckpointer(os.path.join(ckpt_dir, layout))
+    ck.save(state.step, state)
+    fresh = ck.restore(make(layout, seed=1))
+    other = {"mp2": "dp2", "dp2_zero": "dp2"}[layout]
+    try:
+        ck.restore(make(other, seed=1))
+        error = None
+    except ValueError as e:
+        error = f"{type(e).__name__}: {e}"
+    return dict(bitwise=same_tree(state_tree(fresh), state_tree(state)),
+                files=sorted(os.listdir(ck.directory)), other_error=error)
+
+
 def arcface_ranks(rank, world, refs):
     """Two ArcFace steps at data 2 x model 1 and data 1 x model 2, and with
-    the momentum sharded (ZeRO-1) and replicated."""
+    the momentum sharded (ZeRO-1) and replicated; the class-shard and ZeRO
+    states then go through ``TrainCheckpointer`` (``arcface_checkpoint``)."""
     from s2v_torch.models.iresnet import IResNet
     from s2v_torch.parallel.mesh import make_process_mesh, replicas_agree
     from s2v_torch.parallel.zero import state_numel
     from s2v_torch.train.arcface import make_arcface_trainer
 
-    out = {}
-    for name, (dp, mp_, zero) in (("dp2", (2, 1, False)), ("mp2", (1, 2, False)),
-                                  ("dp2_zero", (2, 1, True))):
-        mesh = make_process_mesh(dp, mp_)
+    layouts = {"dp2": (2, 1, False), "mp2": (1, 2, False), "dp2_zero": (2, 1, True)}
+
+    def make(name, seed=0):
+        dp, mp_, zero = layouts[name]
+        torch.manual_seed(seed)
         backbone = IResNet(refs["layers"], refs["emb"])
-        backbone.load_state_dict({k: torch.from_numpy(v) for k, v in refs["sd"].items()})
-        state, step = make_arcface_trainer(refs["classes"], mesh, refs["emb"], refs["layers"],
+        if seed == 0:
+            backbone.load_state_dict({k: torch.from_numpy(v) for k, v in refs["sd"].items()})
+        mesh = make_process_mesh(dp, mp_)
+        return mesh, *make_arcface_trainer(refs["classes"], mesh, refs["emb"], refs["layers"],
                                            lr=0.1, zero_opt=zero, device="cpu",
                                            backbone=backbone, clf_weight=refs["clf"])
+
+    out = {}
+    for name, (dp, mp_, zero) in layouts.items():
+        mesh, state, step = make(name)
+        backbone = state.backbone
         d = rank // mp_
         images = np.array_split(refs["images"], dp)[d]
         labels = np.array_split(refs["labels"], dp)[d]
@@ -270,4 +314,7 @@ def arcface_ranks(rank, world, refs):
                          agree=replicas_agree(list(backbone.parameters())
                                               + list(backbone.buffers()),
                                               mesh.get_group("data")))
+        if name in ("mp2", "dp2_zero"):
+            out[name]["checkpoint"] = arcface_checkpoint(
+                state, lambda n, seed: make(n, seed)[1], name, refs["ckpt_dir"])
     return out
