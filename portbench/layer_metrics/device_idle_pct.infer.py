@@ -1,0 +1,12 @@
+"""The device's idle share in the traced window's profiled work (one whole request):
+1 less the union of its device operations' intervals in the profile over
+the wall of the same work's unprofiled twin, in %."""
+
+from portbench.core.readers import idle_pct
+
+UNIT, SOURCE, LAYER, MOVES = "%", "device_trace", "device", "infer_fps"
+BASE = "the profile's busy time over its unprofiled twin's wall: one whole request"
+
+
+def read(td):
+    return idle_pct(td)
