@@ -1,0 +1,14 @@
+"""S3FD's and FAN's device time, every landmark sweep (Step 1's in fresh, the
+reference faces' in both cells), in ms per output frame of the traced
+window's profiled request: the device time of every operation whose host
+operation starts inside a ``net.s3fd`` or ``net.fan`` span (the program's
+annotations, core/program_trace.py)."""
+
+from portbench.core.program_trace import device_ms_per_frame
+
+UNIT, SOURCE, LAYER, MOVES = "ms/frame", "device_trace", "networks", "infer_fps"
+BASE = "output frames of the profiled request: device time under net.s3fd and net.fan"
+
+
+def read(td):
+    return device_ms_per_frame(td, ("net.s3fd", "net.fan"))

@@ -1,0 +1,13 @@
+"""ParseNet's device time, every pass (the mouth mask, the final stage, Step
+5), in ms per output frame of the traced window's profiled request: the
+device time of every operation whose host operation starts inside a
+``net.parsenet`` span (the program's annotations, core/program_trace.py)."""
+
+from portbench.core.program_trace import device_ms_per_frame
+
+UNIT, SOURCE, LAYER, MOVES = "ms/frame", "device_trace", "networks", "infer_fps"
+BASE = "output frames of the profiled request: device time under net.parsenet"
+
+
+def read(td):
+    return device_ms_per_frame(td, ("net.parsenet",))

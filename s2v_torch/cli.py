@@ -9,7 +9,9 @@ futils/inference_utils.py:16-51).
         --checkpoint_dir checkpoints [--train.epochs 10 --train.batch_size 16]
 
 ``infer`` and ``train`` run on the card; ``main(argv, device="cpu")`` runs
-them on the CPU on purpose. ``infer --parallel.infer_mesh true`` splits the
+them on the CPU on purpose. ``--trace_out FILE`` writes the run's spans and
+counters (``s2v_torch.utils.trace``) to FILE as a Chrome trace when the
+command ends. ``infer --parallel.infer_mesh true`` splits the
 frames of every stage over a mesh of the cards (``--parallel.data_parallel``
 of them, all by default), or of ``--parallel.data_parallel`` replicas on
 the CPU under ``device="cpu"``. Checkpoints are the reference's torch
@@ -41,7 +43,10 @@ import sys
 import numpy as np
 import torch
 
+from s2v_torch.utils import trace
 
+
+@trace.span("setup.load_models")
 def load_models(checkpoint_dir: str, cfg=None, device=None, mesh=None):
     """PipelineModels from a directory of reference checkpoints, with the
     file names, fallbacks and precedence of s2v_tpu's ``load_models``; the
@@ -370,10 +375,34 @@ def build_mesh(cfg, device=None):
 
 def main(argv=None, device=None):
     """``infer`` (the default command), ``train`` or ``find-audio``;
-    ``device`` as ``load_models``'s. ``bench`` is not ported yet."""
+    ``device`` as ``load_models``'s. ``bench`` is not ported yet. With
+    ``--trace_out FILE`` the process's spans and counters are written to
+    FILE (``s2v_torch.utils.trace.write_chrome``) when the command ends,
+    also when it fails."""
     argv = list(sys.argv[1:] if argv is None else argv)
     command = argv.pop(0) if argv and not argv[0].startswith("--") else "infer"
+    trace_out = _pop_flag(argv, "trace_out")
     cfg = parse_args(argv)
+    try:
+        return _run_command(command, cfg, device)
+    finally:
+        if trace_out is not None:
+            print("trace:", trace.write_chrome(trace_out))
+
+
+def _pop_flag(argv: list, name: str):
+    """The value of ``--name VALUE`` or ``--name=VALUE`` in ``argv``, taken
+    out of it; None when absent."""
+    for i, a in enumerate(argv):
+        if a.startswith(f"--{name}="):
+            return argv.pop(i).split("=", 1)[1]
+        if a == f"--{name}" and i + 1 < len(argv):
+            del argv[i]
+            return argv.pop(i)
+    return None
+
+
+def _run_command(command: str, cfg, device):
     if command == "infer":
         from s2v_torch.pipeline.inference import LipSyncPipeline
 

@@ -1,13 +1,12 @@
 """Hand-written CUDA kernels of the port, each beside its plain version.
 
-``KERNELS`` lists every kernel wrapper; each keeps a plain integer
-``launches`` count that rises by one per kernel launch (never for the plain
-CPU version), so a run can show that it went through the kernels:
-``fused_act`` K1, ``fused_act_bwd`` K2, ``upfirdn2d`` K3 (forward and
-backward launches alike). Each kernel is also an operator of the ``s2v``
-namespace (``torch.ops.s2v.fused_act_fwd``, ``fused_act_bwd``,
-``upfirdn2d``; ``_ops.py``), defined when this package is imported, so
-``torch.export`` keeps the kernels in an exported program.
+Each kernel launch adds one to its counter ``kernel.launch.<name>`` in
+``s2v_torch.utils.trace`` (``COUNTERS``; never the plain CPU version), so a
+run can show that it went through the kernels: ``fused_act`` K1,
+``fused_act_bwd`` K2, ``upfirdn2d`` K3 (forward and backward launches
+alike); ``launch_counts`` reads them. Each kernel is also an operator of the ``s2v`` namespace (``torch.ops.s2v.fused_act_fwd``,
+``fused_act_bwd``, ``upfirdn2d``; ``_ops.py``), defined when this package
+is imported, so ``torch.export`` keeps the kernels in an exported program.
 """
 
 from s2v_torch.ops.kernels.fused_act import (  # noqa: F401
@@ -17,15 +16,14 @@ from s2v_torch.ops.kernels.fused_act import (  # noqa: F401
     fused_bias_leaky_relu_plain,
 )
 from s2v_torch.ops.kernels.upfirdn2d import upfirdn2d, upfirdn2d_plain  # noqa: F401
+from s2v_torch.utils import trace
 
-KERNELS = {"fused_act": fused_bias_leaky_relu, "fused_act_bwd": fused_bias_leaky_relu_bwd,
-           "upfirdn2d": upfirdn2d}
+COUNTERS = {name: f"kernel.launch.{name}" for name in ("fused_act", "fused_act_bwd", "upfirdn2d")}
 
 
 def reset_launch_counts() -> None:
-    for fn in KERNELS.values():
-        fn.launches = 0
+    trace.reset(COUNTERS.values())
 
 
 def launch_counts() -> dict:
-    return {name: fn.launches for name, fn in KERNELS.items()}
+    return {name: trace.counter(c) for name, c in COUNTERS.items()}

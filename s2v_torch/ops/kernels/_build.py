@@ -19,6 +19,8 @@ import subprocess
 from pathlib import Path
 from typing import Dict, Iterable
 
+from s2v_torch.utils import trace
+
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -71,11 +73,17 @@ def _finish(name: str, job) -> None:
 
 def build(names: Iterable[str]) -> None:
     """Compile every named source that is not built yet, one nvcc each, all
-    started together."""
-    jobs = [(n, _start(n)) for n in names]
-    for n, job in jobs:
-        if job is not None:
-            _finish(n, job)
+    started together, inside span ``kernel.build`` (tagged with the names
+    compiled); counter ``kernel.build`` counts the nvcc runs."""
+    todo = [n for n in names if not library_path(n).exists()]
+    if not todo:
+        return
+    with trace.span("kernel.build", ",".join(todo)):
+        jobs = [(n, _start(n)) for n in todo]
+        for n, job in jobs:
+            if job is not None:
+                _finish(n, job)
+                trace.count("kernel.build")
 
 
 def load(name: str) -> ctypes.CDLL:

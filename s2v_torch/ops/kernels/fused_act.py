@@ -35,6 +35,7 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from s2v_torch.ops.kernels import _build, _ops
+from s2v_torch.utils import trace
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -111,7 +112,7 @@ def _fwd_cuda(x: torch.Tensor, bias: torch.Tensor, negative_slope: float,
             torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"fused_bias_leaky_relu: CUDA launch error {rc}")
-    fused_bias_leaky_relu.launches += 1
+    trace.count("kernel.launch.fused_act")
     return out
 
 
@@ -141,7 +142,7 @@ def _bwd_cuda(g: torch.Tensor, out: torch.Tensor, bias: Optional[torch.Tensor],
             torch.cuda.current_stream(g.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"fused_bias_leaky_relu_bwd: CUDA launch error {rc}")
-    fused_bias_leaky_relu_bwd.launches += 1
+    trace.count("kernel.launch.fused_act_bwd")
     return dx
 
 
@@ -243,6 +244,3 @@ def fused_bias_leaky_relu(x: torch.Tensor, bias: torch.Tensor,
     Returns a tensor like x, differentiable twice in x and bias."""
     return FusedAct.apply(x, bias, negative_slope, scale)
 
-
-fused_bias_leaky_relu.launches = 0
-fused_bias_leaky_relu_bwd.launches = 0

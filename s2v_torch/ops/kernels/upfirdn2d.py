@@ -14,7 +14,7 @@ upfirdn2d (GPEN's ``UpFirDn2dBackward``): the flipped FIR, ``up`` and
 ``down`` swapped, per axis a leading pad of ``k - p0 - 1`` and a trailing pad
 that gives back the input's size. The backward calls the Function itself, so
 the double backward (R1) is K3 again with the original parameters. Backward
-launches count on K3's counter.
+launches count on K3's counter (``kernel.launch.upfirdn2d``).
 
 K3 is the operator ``s2v::upfirdn2d`` (``_ops.py``): its CUDA
 implementation launches the kernel, its CPU implementation runs the plain
@@ -34,6 +34,7 @@ import torch.nn.functional as F
 
 from s2v_torch.ops.kernels import _build, _ops
 from s2v_torch.ops.kernels.fused_act import _on_a_device
+from s2v_torch.utils import trace
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 Pad = Tuple[int, int]
@@ -121,7 +122,7 @@ def _cuda(x: torch.Tensor, fir: list, kh: int, kw: int, up: int, down: int, py0:
                      torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"upfirdn2d: CUDA launch error {rc}")
-    upfirdn2d.launches += 1
+    trace.count("kernel.launch.upfirdn2d")
     return out
 
 
@@ -180,5 +181,3 @@ def upfirdn2d(x: torch.Tensor, kernel, up: int = 1, down: int = 1,
     k = np.asarray(kernel, np.float32)
     return UpFirDn2d.apply(x, k, up, down, tuple(pad), tuple(pad))
 
-
-upfirdn2d.launches = 0

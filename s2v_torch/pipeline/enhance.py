@@ -37,6 +37,7 @@ from s2v_torch.ops.image import frames_to_nchw, resize_bilinear
 from s2v_torch.ops.warp import affine_warp, affine_warp_shear
 from s2v_torch.parallel.mesh import map_frames, per_device_chunk, replica_on
 from s2v_torch.pipeline.utils import gaussian_blur, laplacian_pyramid_blend, mask_postprocess
+from s2v_torch.utils import trace
 
 # align_faces.py:14-22
 REFERENCE_FACIAL_POINTS = np.array(
@@ -49,6 +50,10 @@ DEFAULT_CROP_SIZE = (96, 112)
 SMALL_FACE_KERNEL = np.array([[0.0625, 0.125, 0.0625],
                               [0.125, 0.25, 0.125],
                               [0.0625, 0.125, 0.0625]], np.float32)
+
+# the span of each model's call (``s2v_torch.utils.trace``)
+NET_SPANS = {"retinaface": "net.retinaface", "parsenet": "net.parsenet", "facegan": "net.gpen",
+             "srmodel": "net.sr"}
 
 # face-region colormap of the blending mask (face_enhancement.py:141)
 FACE_MASK_COLORMAP = [0, 255, 255, 255, 255, 255, 255, 255, 0, 0, 255, 255,
@@ -186,21 +191,23 @@ class FaceEnhancer:
         return torch.autocast(self.device.type, dtype=torch.bfloat16,
                               enabled=self.amp)
 
-    def _model(self, name: str, x: torch.Tensor, why: str = "") -> torch.nn.Module:
-        """The model ``name`` (its replica on ``x``'s device)."""
+    def _run(self, name: str, x: torch.Tensor, *args, why: str = ""):
+        """The model ``name`` (its replica on ``x``'s device) called on
+        ``args``, inside its span of ``NET_SPANS``."""
         if name not in self.models:
             raise ValueError(f"FaceEnhancer needs a '{name}' model {why}")
-        return replica_on(self.models[name], x.device, self.mesh)
+        return trace.call(NET_SPANS[name], replica_on(self.models[name], x.device, self.mesh),
+                          *args)
 
     @torch.no_grad()
     def _detect(self, x: torch.Tensor):
         """RetinaFace on frames [k, 3, H, W] RGB 0..255 (enhance.py
         detect_tfms): (landmarks [k, 5, 2], small [k], valid [k]); ``small``
         when the box's shorter side is under 100 px."""
-        retina = self._model("retinaface", x, "unless landmarks5 are supplied")
         mean = torch.tensor(RETINA_MEAN, device=x.device).view(1, 3, 1, 1)
         with full_f32(), bf16_autocast(x.device, self.det_dtype):
-            outs = retina(x.flip(1) - mean)
+            outs = self._run("retinaface", x, x.flip(1) - mean,
+                             why="unless landmarks5 are supplied")
         boxes, landms, valid = detect_faces(tuple(o.float() for o in outs), x.shape[2:],
                                             self.threshold)
         small = torch.minimum(boxes[:, 2] - boxes[:, 0], boxes[:, 3] - boxes[:, 1]) < 100
@@ -215,14 +222,13 @@ class FaceEnhancer:
         s, ps = self.in_size, self.parse_size
         ef = self.warp(x, tfms, (s, s))
         if face_enhance:
-            gan = self._model("facegan", x, "for face_enhance=True")
             with self._autocast():
-                ef = gan(ef / 255.0 * 2.0 - 1.0)
+                ef = self._run("facegan", x, ef / 255.0 * 2.0 - 1.0, why="for face_enhance=True")
             ef = torch.clamp((ef.float() + 1.0) / 2.0, 0.0, 1.0) * 255.0
         # the mask is parsed from the unfiltered face (face_enhancement.py:145)
         efp = resize_bilinear(ef, (ps, ps))
         with self._autocast():
-            logits, _ = self._model("parsenet", efp)(efp / 255.0 * 2.0 - 1.0)
+            logits, _ = self._run("parsenet", efp, efp / 255.0 * 2.0 - 1.0)
         mask_sharp = parse_mask(logits.float(), FACE_MASK_COLORMAP)[:, None] / 255.0
         mask_sharp = resize_bilinear(mask_sharp, (512, 512))
         tmp_mask = resize_bilinear(mask_postprocess(mask_sharp, thres=26), (s, s))
@@ -261,7 +267,7 @@ class FaceEnhancer:
     @torch.no_grad()
     def _super_resolve(self, x: torch.Tensor) -> torch.Tensor:
         with self._autocast():
-            out = self._model("srmodel", x)(x / 255.0)
+            out = self._run("srmodel", x, x / 255.0)
         return (torch.clamp(out.float(), 0.0, 1.0) * 255.0).to(torch.uint8).float()
 
     @torch.no_grad()

@@ -34,6 +34,15 @@ Steps 1-3 and 5 through the per-video artifact cache
 (``s2v_torch.utils.cache``; Steps 3 and 5 written after Step 6), the wav
 and its mel, Step 6, the frames written and muxed with the audio.
 
+Spans (``s2v_torch.utils.trace``): ``infer.run`` around ``run``, inside it
+``io.read_clip``, the cache's ``cache.hit`` / ``cache.miss`` per stage,
+``audio.mel``, ``cache.flush``, ``io.write`` and ``io.mux``; one per stage
+method (``step1.landmarks``, ``step1.ffhq_crop``, ``step2.coeffs``,
+``step3.stabilize``, ``step5.enhance_reference``, ``step6.synthesize``);
+inside ``synthesize`` ``step6.reference_faces``, and per batch
+``step6.lipsync``, ``step6.mouth_tail``, ``step6.final_stage`` and
+``step6.to_host``; ``net.<name>`` around each network's call.
+
 S3FD, FAN and ReconNet run in full f32 (no TF32), S3FD and FAN with bf16
 convs under ``model.detector_dtype=bfloat16`` (their decodes in f32); DNet
 and ENet under bf16 autocast on the card when ``model.dtype`` is bfloat16.
@@ -68,6 +77,7 @@ from s2v_torch.pipeline.align import (compute_transform, crop_quad_params, ffhq_
 from s2v_torch.pipeline.face3d_prep import align_img
 from s2v_torch.pipeline.utils import find_crop_norm_ratio, transform_semantic
 from s2v_torch.utils.cache import ArtifactCache
+from s2v_torch.utils import trace
 from s2v_torch.utils.config import PipelineConfig
 
 _MODULES = ("s3fd", "fan", "recon", "dnet", "enet")
@@ -167,9 +177,11 @@ class LipSyncPipeline:
                 module.to(self.device).eval()
         self.amp = cfg.model.dtype == "bfloat16" and self.device.type == "cuda"
 
-    def _on(self, module: torch.nn.Module, x: torch.Tensor) -> torch.nn.Module:
-        """``module``'s replica on ``x``'s device."""
-        return replica_on(module, x.device, self.mesh)
+    def _net(self, name: str, x: torch.Tensor, *args):
+        """The network ``name`` of the models (its replica on ``x``'s
+        device) called on ``args``, inside span ``net.<name>``."""
+        module = replica_on(getattr(self.models, name), x.device, self.mesh)
+        return trace.call(f"net.{name}", module, *args)
 
     def _map(self, fn, *xs):
         """``fn`` over the mesh's data axis (``map_frames``), or once."""
@@ -195,7 +207,7 @@ class LipSyncPipeline:
         """x [B, 3, H, W] RGB 0..255 -> (boxes [B, 4], valid [B])."""
         mean = torch.tensor(BGR_MEAN, device=x.device).view(1, 3, 1, 1)
         with self._det_autocast():
-            outs = self._on(self.models.s3fd, x)(x.flip(1) - mean)
+            outs = self._net("s3fd", x, x.flip(1) - mean)
         return best_boxes([(c.float(), r.float()) for c, r in outs])
 
     def _landmarks(self, x: torch.Tensor):
@@ -204,7 +216,7 @@ class LipSyncPipeline:
         centers, scales = box_to_center_scale(boxes)
         crops = crop_faces_batched(x, centers, scales)
         with self._det_autocast():
-            hm = self._on(self.models.fan, crops)(crops)
+            hm = self._net("fan", crops, crops)
         return boxes, valid, heatmaps_to_landmarks(hm.float(), centers, scales)
 
     @torch.no_grad()
@@ -242,6 +254,7 @@ class LipSyncPipeline:
         self._check_found(valid)
         return boxes
 
+    @trace.span("step1.landmarks")
     def extract_landmarks(self, frames_rgb, batch: int = 32, return_boxes: bool = False):
         """[N, H, W, 3] uint8 RGB -> [N, 68, 2] landmarks (KeypointExtractor:
         S3FD box -> FAN heatmaps -> coordinates, one sweep). With
@@ -252,6 +265,7 @@ class LipSyncPipeline:
         self._check_found(valid)
         return (lms, boxes) if return_boxes else lms
 
+    @trace.span("step1.ffhq_crop")
     @torch.no_grad()
     def ffhq_crop(self, frames_rgb, first_lm: np.ndarray, frames_dev=None,
                   device_out: bool = False):
@@ -277,6 +291,7 @@ class LipSyncPipeline:
     # Step 2: 3DMM coefficients
     # ------------------------------------------------------------------
 
+    @trace.span("step2.coeffs")
     @torch.no_grad()
     def extract_coeffs(self, frames_256, lm: np.ndarray, batch: int = 32) -> np.ndarray:
         """facing.py:99-134: align each frame to 224^2 on the host, then
@@ -299,7 +314,7 @@ class LipSyncPipeline:
         with full_f32():
             for i in range(0, n, batch):
                 x = frames_to_nchw(aligned[i:i + batch], self.device) / 255.0
-                coeffs.append(self._map(lambda c: self._on(self.models.recon, c)(c).float(),
+                coeffs.append(self._map(lambda c: self._net("recon", c, c).float(),
                                         x).cpu().numpy())
         return np.concatenate([np.concatenate(coeffs), trans_params], axis=1)
 
@@ -328,6 +343,7 @@ class LipSyncPipeline:
         coeff[:, :64, :] = expr[None, :, None]
         return coeff
 
+    @trace.span("step3.stabilize")
     @torch.no_grad()
     def stabilize(self, frames_256, semantic: np.ndarray, batch: int = 16,
                   one_shot: bool = False, device_out: bool = False):
@@ -346,7 +362,7 @@ class LipSyncPipeline:
 
         def run(img, co):
             with self._autocast():
-                fake = self._on(self.models.dnet, img)(img, co)["fake_image"]
+                fake = self._net("dnet", img, img, co)["fake_image"]
             return torch.clamp((fake.float() + 1.0) / 2.0 * 255.0, 0, 255).to(torch.uint8)
 
         out = []
@@ -360,6 +376,7 @@ class LipSyncPipeline:
     # Step 5: reference enhancement
     # ------------------------------------------------------------------
 
+    @trace.span("step5.enhance_reference")
     def enhance_reference(self, stabilized):
         """Step 5 (inference.py:234-238; the body of s2v_tpu's ``run``
         compute_enh): the ``ref_enhancer`` hook over the stabilised frames
@@ -435,7 +452,7 @@ class LipSyncPipeline:
         masked[:, :, img // 2:] = 0.0
         ref = refs / 255.0
         with self._autocast():
-            pred, _ = self._on(self.models.enet, mel)(mel, torch.cat([masked, ref], 1), ref)
+            pred, _ = self._net("enet", mel, mel, torch.cat([masked, ref], 1), ref)
         pred = torch.clamp(pred.float(), 0.0, 1.0)
         if self.cfg.infer.without_rl1:
             editor = self.models.up_face_editor
@@ -445,6 +462,7 @@ class LipSyncPipeline:
         return torch.clamp(paste_resize_boxes(frames, pred * 255.0, boxes),
                            0, 255).to(torch.uint8)
 
+    @trace.span("step6.synthesize")
     @torch.no_grad()
     def synthesize(self, stabilized, mel: torch.Tensor, full_frames, coordinates,
                    fps: float, boxes_full: Optional[np.ndarray] = None,
@@ -488,9 +506,10 @@ class LipSyncPipeline:
                                          pads=cfg.infer.pads, smooth=not cfg.infer.nosmooth)
         frames_dev = torch.as_tensor(frames_t, device=self.device)  # crosses once
         full = frames_to_nchw(frames_dev, self.device)
-        refs = self.build_reference_faces(
-            stabilized[:n_frames], frames_dev, coordinates, boxes,
-            None if lms_stab is None else np.asarray(lms_stab)[:n_frames])
+        with trace.span("step6.reference_faces"):
+            refs = self.build_reference_faces(
+                stabilized[:n_frames], frames_dev, coordinates, boxes,
+                None if lms_stab is None else np.asarray(lms_stab)[:n_frames])
         lm5 = (lm68_to_lm5(np.asarray(lms_full)[:n_frames]).astype(np.float32)
                if reuse else None)
         boxes_dev = torch.as_tensor(boxes.astype(np.float32), device=self.device)
@@ -505,20 +524,24 @@ class LipSyncPipeline:
             # the frames (a reference quirk the port keeps)
             idxs = [_frame_index(i, n_frames, cfg.infer.static)
                     for i in range(start, min(start + batch, n_chunks))]
-            ix = torch.as_tensor(idxs, device=self.device)
-            pasted = self._step6(full[ix], boxes_dev[ix], refs[ix], chunks[ix][:, None])
-            pasted = pasted.permute(0, 2, 3, 1)  # NHWC uint8
+            with trace.span("step6.lipsync"):
+                ix = torch.as_tensor(idxs, device=self.device)
+                pasted = self._step6(full[ix], boxes_dev[ix], refs[ix], chunks[ix][:, None])
+                pasted = pasted.permute(0, 2, 3, 1)  # NHWC uint8
             if self.models.mouth_restorer is not None:
                 # the boxes and landmarks already on the device: a host copy
                 # here would wait for the card's queue
                 kw = dict(landmarks5=lm5_dev[ix]) if reuse else {}
-                pasted = self.models.mouth_restorer(pasted, boxes_dev[ix], **kw)
+                with trace.span("step6.mouth_tail"):
+                    pasted = self.models.mouth_restorer(pasted, boxes_dev[ix], **kw)
             if self.models.final_enhancer is not None:
                 kw = dict(landmarks5=lm5[idxs], det_boxes=boxes[idxs]) if reuse else {}
-                pasted = self.models.final_enhancer(pasted, boxes[idxs], **kw)
-                if cfg.infer.cropped_image:
-                    pasted = self._box_over_original(pasted, full[ix], boxes[idxs])
-            out.append(torch.as_tensor(pasted).cpu().numpy())
+                with trace.span("step6.final_stage"):
+                    pasted = self.models.final_enhancer(pasted, boxes[idxs], **kw)
+                    if cfg.infer.cropped_image:
+                        pasted = self._box_over_original(pasted, full[ix], boxes[idxs])
+            with trace.span("step6.to_host"):
+                out.append(torch.as_tensor(pasted).cpu().numpy())
         return np.concatenate(out)
 
     @staticmethod
@@ -538,14 +561,16 @@ class LipSyncPipeline:
     # Full run
     # ------------------------------------------------------------------
 
+    @trace.span("infer.run")
     def run(self, face_path: str, audio_path: str, outfile: str) -> str:
         """The ``infer`` command (s2v_tpu's ``LipSyncPipeline.run``,
         reference inference.py main()): the clip file -> Steps 1-6 -> the
         output file muxed with the audio. Returns the output's path (an
         ``.npz`` beside ``outfile`` when there is no ffmpeg)."""
         cfg = self.cfg
-        reader = VideoReader(face_path)
-        frames = reader.read_all()
+        with trace.span("io.read_clip"):
+            reader = VideoReader(face_path)
+            frames = reader.read_all()
         fps = reader.fps or cfg.infer.fps
         cy1, cy2, cx1, cx2 = cfg.infer.crop  # --crop: top bottom left right
         if (cy1, cy2, cx1, cx2) != (0, -1, 0, -1):
@@ -626,9 +651,11 @@ class LipSyncPipeline:
             if stab_dev is None:
                 stab_dev = torch.as_tensor(stabilized, device=self.device)
 
-        wav = load_wav(audio_path, cfg.audio.sample_rate)
-        mel = melspectrogram(torch.from_numpy(wav).to(self.device), cfg.audio)
-        if not bool(torch.isfinite(mel).all()):
+        with trace.span("audio.mel"):
+            wav = load_wav(audio_path, cfg.audio.sample_rate)
+            mel = melspectrogram(torch.from_numpy(wav).to(self.device), cfg.audio)
+            finite = bool(torch.isfinite(mel).all())
+        if not finite:
             raise ValueError("Mel contains nan! Using a TTS voice? Add a small epsilon "
                              "noise to the wav file and try again")
 
@@ -643,8 +670,10 @@ class LipSyncPipeline:
 
         tmp_video = os.path.join(cfg.infer.tmp_dir, "result.npz")
         os.makedirs(cfg.infer.tmp_dir, exist_ok=True)
-        writer = VideoWriter(tmp_video, fps, out.shape[1:3])
-        for f in out:
-            writer.write(f)
-        writer.close()
-        return mux_audio(writer.path, audio_path, outfile)
+        with trace.span("io.write"):
+            writer = VideoWriter(tmp_video, fps, out.shape[1:3])
+            for f in out:
+                writer.write(f)
+            writer.close()
+        with trace.span("io.mux"):
+            return mux_audio(writer.path, audio_path, outfile)

@@ -47,6 +47,7 @@ from s2v_torch.ops.warp import (affine_warp, affine_warp_shear, crop_resize_boxe
 from s2v_torch.parallel.mesh import map_frames, per_device_chunk, replica_on
 from s2v_torch.pipeline.enhance import _to_u8, umeyama_similarity_batched
 from s2v_torch.pipeline.utils import laplacian_pyramid_blend
+from s2v_torch.utils import trace
 
 # facexlib FaceRestoreHelper's 512^2 face template
 FACEXLIB_TEMPLATE_512 = np.array(
@@ -96,9 +97,11 @@ class GFPGANRestorer:
         self.det_dtype = det_dtype
         self.warp = affine_warp_shear if approx_warp else affine_warp
 
-    def _model(self, name: str, x: torch.Tensor) -> torch.nn.Module:
-        """The model ``name`` (its replica on ``x``'s device)."""
-        return replica_on(self.models[name], x.device, self.mesh)
+    def _run(self, name: str, x: torch.Tensor, *args):
+        """The model ``name`` (its replica on ``x``'s device) called on
+        ``args``, inside span ``net.<name>``."""
+        return trace.call(f"net.{name}", replica_on(self.models[name], x.device, self.mesh),
+                          *args)
 
     @torch.no_grad()
     def _detect(self, x: torch.Tensor):
@@ -109,7 +112,7 @@ class GFPGANRestorer:
             raise ValueError("GFPGANRestorer needs a 'retinaface' model unless landmarks5 "
                              "are supplied")
         with full_f32(), bf16_autocast(x.device, self.det_dtype):
-            outs = self._model("retinaface", x)(x.flip(1) - _retina_mean_on(x.device))
+            outs = self._run("retinaface", x, x.flip(1) - _retina_mean_on(x.device))
         return detect_faces(tuple(o.float() for o in outs), x.shape[2:], self.threshold)
 
     @torch.no_grad()
@@ -122,7 +125,7 @@ class GFPGANRestorer:
         tfms, _ = umeyama_similarity_batched(landms, self.template.to(x.device))  # frame -> crop
         face = self.warp(x, tfms, (s, s))
         with torch.autocast(self.device.type, dtype=torch.bfloat16, enabled=self.amp):
-            out = self._model("gfpgan", face)((face / 255.0 - 0.5) / 0.5)
+            out = self._run("gfpgan", face, (face / 255.0 - 0.5) / 0.5)
         if isinstance(out, tuple):  # GFPGANv1: (image, the U-Net's RGB heads)
             out = out[0]
         restored = torch.clamp((out.float() + 1.0) / 2.0, 0.0, 1.0) * 255.0
@@ -186,7 +189,7 @@ class MouthRestorer:
         crop = crop_resize_boxes(restored, boxes, (ps, ps))
         parsenet = replica_on(self.parsenet, crop.device, self.restorer.mesh)
         with full_f32(), bf16_autocast(crop.device, self.restorer.det_dtype):
-            logits, _ = parsenet(crop / 255.0 * 2.0 - 1.0)
+            logits, _ = trace.call("net.parsenet", parsenet, crop / 255.0 * 2.0 - 1.0)
         mm = parse_mask(logits.float(), MOUTH_COLORMAP)[:, None] / 255.0
         mouth = paste_resize_boxes(frames.new_zeros(k, 1, h, w), mm, boxes)
         blended = laplacian_pyramid_blend(resize_bilinear(restored, (512, 512)),
@@ -251,7 +254,8 @@ def make_up_face_editor(models: dict, up_face: str, device=None,
         small = resize_bilinear(faces01 * 2.0 - 1.0, (128, 128))
         g = replica_on(gen, small.device, mesh)
         with full_f32():
-            color, att, _ = g(small, aus.to(small.device).expand(len(small), -1))
+            color, att, _ = trace.call("net.ganimation", g, small,
+                                       aus.to(small.device).expand(len(small), -1))
         fake = apply_expression(small, color, att)
         return torch.clamp(resize_bilinear(fake / 2.0 + 0.5, faces01.shape[2:]), 0.0, 1.0)
 

@@ -35,6 +35,8 @@ from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
+from s2v_torch.utils import trace
+
 # ---------------------------------------------------------------------------
 # kernel synthesis
 # ---------------------------------------------------------------------------
@@ -530,20 +532,24 @@ def face_batches(images_u8: np.ndarray, batch_size: int,
     """FaceDataset-equivalent batch generator (dataset_face.py:74-110):
     sample HQ faces, degrade, yield dict(lq, hq) in [-1, 1] float32 — the
     batch contract of train.gan.make_gan_trainer. ``images_u8``
-    [N,H,W,3] uint8 RGB."""
+    [N,H,W,3] uint8 RGB. Each batch is made inside span
+    ``data.face_batches`` (``s2v_torch.utils.trace``)."""
     rng = rng or np.random.default_rng(0)
     degrader = degrader or GFPGANDegrader()
     n = 0
     while steps is None or n < steps:
-        idx = rng.integers(0, len(images_u8), size=batch_size)
-        gts, lqs = [], []
-        for i in idx:
-            gt, lq = degrader(images_u8[int(i)].astype(np.float32) / 255.0,
-                              rng)
-            gts.append(gt)
-            lqs.append(lq)
-        yield {
-            "hq": (np.stack(gts) - 0.5) / 0.5,
-            "lq": (np.stack(lqs) - 0.5) / 0.5,
-        }
+        # the span closes before the yield: the consumer's work is not the batch's
+        with trace.span("data.face_batches"):
+            idx = rng.integers(0, len(images_u8), size=batch_size)
+            gts, lqs = [], []
+            for i in idx:
+                gt, lq = degrader(images_u8[int(i)].astype(np.float32) / 255.0,
+                                  rng)
+                gts.append(gt)
+                lqs.append(lq)
+            batch = {
+                "hq": (np.stack(gts) - 0.5) / 0.5,
+                "lq": (np.stack(lqs) - 0.5) / 0.5,
+            }
+        yield batch
         n += 1

@@ -122,7 +122,7 @@ def finetune(enet: nn.Module, batches: Iterable[Dict[str, np.ndarray]], cfg, dev
     batches = [{k: torch.as_tensor(b[k], device=dev).chunk(n_ranks)[rank] for k in BATCH_KEYS}
                for b in batches]
     leader = is_leader()  # one log and one checkpoint for the whole group
-    logger = ThroughputLogger(log_path if leader else None, every=10)
+    logger = ThroughputLogger(log_path if leader else None, every=10, device=dev)
     ckptr = (TrainCheckpointer(checkpoint_dir, per_rank=False)
              if checkpoint_dir is not None and leader else None)
     for epoch in range(cfg.epochs):

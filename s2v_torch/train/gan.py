@@ -25,6 +25,9 @@ averaged over the group by hand (``allreduce_grads``) instead of wrapping G
 and D in ``DistributedDataParallel``. The metrics are the group's means.
 The EMA and the Adam state stay replicated: the same averaged gradients
 step the same states on every rank (``replicas_agree`` checks it).
+
+Spans (``s2v_torch.utils.trace``): ``gan.d_step`` with ``gan.r1`` inside it
+on the steps R1 falls on, ``gan.g_step`` with ``gan.ema`` inside it.
 """
 
 from __future__ import annotations
@@ -41,6 +44,7 @@ import torch.nn.functional as F
 from s2v_torch.device import resolve_device
 from s2v_torch.models.gpen import Blur, EqualLinear, FusedLeakyReLU, Upsample
 from s2v_torch.parallel.mesh import allreduce_grads, allreduce_mean, data_group
+from s2v_torch.utils import trace
 
 
 def d_logistic_loss(real_pred: torch.Tensor, fake_pred: torch.Tensor) -> torch.Tensor:
@@ -132,13 +136,15 @@ def make_gan_trainer(
     def disc(x):
         return state.d(x, group=group)
 
+    @trace.span("gan.d_step")
     def d_step(state: GANState, batch) -> tuple:
         lq, hq = images(batch, "lq"), images(batch, "hq")
         with torch.no_grad():
             fake = state.g(lq)
         loss = d_logistic_loss(disc(hq), disc(fake))
         if state.step % d_reg_every == 0:
-            r1 = r1_penalty(disc, hq)
+            with trace.span("gan.r1"):
+                r1 = r1_penalty(disc, hq)
             # lazy regularization (train_simple.py:197-203)
             loss = loss + (r1_weight / 2.0) * r1 * d_reg_every
         else:
@@ -149,6 +155,7 @@ def make_gan_trainer(
         state.d_opt.step()
         return state, allreduce_mean({"d_loss": loss.detach(), "r1": r1.detach()}, group)
 
+    @trace.span("gan.g_step")
     def g_step(state: GANState, batch) -> tuple:
         lq, hq = images(batch, "lq"), images(batch, "hq")
         with _frozen(state.d):
@@ -172,7 +179,8 @@ def make_gan_trainer(
             loss.backward()
         allreduce_grads(state.g.parameters(), group)
         state.g_opt.step()
-        ema_update(state.g_ema, state.g, ema_decay)
+        with trace.span("gan.ema"):
+            ema_update(state.g_ema, state.g, ema_decay)
         state.step += 1
         return state, allreduce_mean(metrics, group)
 

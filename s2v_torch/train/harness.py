@@ -31,7 +31,6 @@ import itertools
 import os
 import select
 import sys
-import time
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, Iterable, Optional
 
@@ -39,6 +38,7 @@ import torch
 import torch.nn as nn
 
 from s2v_torch.utils.checkpoint import TrainCheckpointer
+from s2v_torch.utils import trace
 from s2v_torch.utils.diagnostics import ThroughputLogger
 
 
@@ -70,12 +70,14 @@ class Engine:
     elapsed_s: float = 0.0  # per-engine timing (engines.py:127-151)
 
     def step(self, batch):
-        t0 = time.time()
-        self.state, metrics = self.step_fn(self.state, batch)
-        dev = state_device(self.state)
-        if dev is not None and dev.type == "cuda":
-            torch.cuda.synchronize(dev)  # the step's kernels have ended
-        self.elapsed_s = time.time() - t0
+        """One step inside span ``engine.step`` (tagged with the engine's
+        name), whose record gives ``elapsed_s``."""
+        with trace.span("engine.step", self.name) as s:
+            self.state, metrics = self.step_fn(self.state, batch)
+            dev = state_device(self.state)
+            if dev is not None and dev.type == "cuda":
+                torch.cuda.synchronize(dev)  # the step's kernels have ended
+        self.elapsed_s = s.record.seconds
         return metrics
 
 
@@ -156,7 +158,9 @@ def train(engines: Engines, batch_iter: Iterable[Dict[str, Any]],
           eval_every: int = 0, max_steps: Optional[int] = None,
           command_file: Optional[str] = None, log_path: Optional[str] = None) -> Engines:
     """trainer.py:100-208: 'infinite' epochs with event hooks."""
-    logger = ThroughputLogger(log_path, every=50)
+    lead = next(iter(engines.values()), None)
+    logger = ThroughputLogger(log_path, every=50,
+                              device=None if lead is None else state_device(lead.state))
     channel = CommandChannel(command_file)
     for batches in batch_iter:
         stats = engines.step(batches)

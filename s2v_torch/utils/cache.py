@@ -6,6 +6,11 @@ Each expensive pipeline stage's output is cached keyed by (video basename,
 stage, parameters-hash) and skipped on re-run unless invalidated
 (--re_preprocess: ``refresh=True``). File names are s2v_tpu's for
 the same parameters, so either package reads the other's artifacts.
+
+Each lookup is a span of ``s2v_torch.utils.trace``, ``cache.hit`` or
+``cache.miss`` tagged with the stage (a miss's compute runs inside it), and
+adds to the counters ``cache.hit``, ``cache.miss``, ``cache.bytes_read``
+and ``cache.bytes_written``; ``flush`` is span ``cache.flush``.
 """
 
 from __future__ import annotations
@@ -17,6 +22,8 @@ from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
+
+from s2v_torch.utils import trace
 
 
 def _to_numpy(v) -> np.ndarray:
@@ -65,24 +72,29 @@ class ArtifactCache:
         stay on the device on a miss)."""
         path = self._path(base_name, stage, params)
         if not refresh and os.path.isfile(path):
-            data = np.load(path, allow_pickle=False)
-            keys = sorted(data.files)
-            if keys == ["__single__"]:
-                return data["__single__"]
-            return {k: data[k] for k in keys}
-        out = fn()
-        if defer:
-            if isinstance(out, dict):
-                copies = {k: _start_host_copy(v) for k, v in out.items()}
-                host = {k: h for k, (h, _) in copies.items()}
-                events = [e for _, e in copies.values()]
+            with trace.span("cache.hit", stage):
+                trace.count("cache.hit")
+                trace.count("cache.bytes_read", os.path.getsize(path))
+                data = np.load(path, allow_pickle=False)
+                keys = sorted(data.files)
+                if keys == ["__single__"]:
+                    return data["__single__"]
+                return {k: data[k] for k in keys}
+        with trace.span("cache.miss", stage):
+            trace.count("cache.miss")
+            out = fn()
+            if defer:
+                if isinstance(out, dict):
+                    copies = {k: _start_host_copy(v) for k, v in out.items()}
+                    host = {k: h for k, (h, _) in copies.items()}
+                    events = [e for _, e in copies.values()]
+                else:
+                    host, event = _start_host_copy(out)
+                    events = [event]
+                self._pending.append((path, host, [e for e in events if e is not None]))
             else:
-                host, event = _start_host_copy(out)
-                events = [event]
-            self._pending.append((path, host, [e for e in events if e is not None]))
-        else:
-            self._write(path, out)
-        return out
+                self._write(path, out)
+            return out
 
     def _write(self, path: str, out) -> None:
         os.makedirs(self.directory, exist_ok=True)
@@ -92,7 +104,9 @@ class ArtifactCache:
             np.savez(path, **{k: _to_numpy(v) for k, v in out.items()})
         else:
             np.savez(path, __single__=_to_numpy(out))
+        trace.count("cache.bytes_written", os.path.getsize(path))
 
+    @trace.span("cache.flush")
     def flush(self) -> None:
         """Write every deferred artifact, each once its host copy is done."""
         pending, self._pending = self._pending, []

@@ -77,12 +77,17 @@ class ThroughputLogger:
     """CallBackLogging: every ``every`` steps one JSON line (step,
     samples/sec since the last line, the mean loss since then, the step's
     metrics), printed and appended to ``log_path`` when given; ``force``
-    writes a line at any step (a run's last)."""
+    writes a line at any step (a run's last). The clock is
+    ``time.perf_counter``; with a CUDA ``device`` (the one the steps run
+    on) the card's queue is drained before each reading, so a line's rate
+    counts finished steps."""
 
-    def __init__(self, log_path: Optional[str] = None, every: int = 50):
+    def __init__(self, log_path: Optional[str] = None, every: int = 50, device=None):
         self.log_path = log_path
         self.every = every
-        self._t0 = time.time()
+        self.device = (torch.device(device) if device is not None
+                       and torch.device(device).type == "cuda" else None)
+        self._t0 = self._now()
         self._samples = 0
         self._last_step = 0
         self.loss = AverageMeter()
@@ -94,7 +99,7 @@ class ThroughputLogger:
             self.loss.update(metrics["loss"])
         if step == self._last_step or not (force or step % self.every == 0):
             return None
-        dt = max(time.time() - self._t0, 1e-9)
+        dt = max(self._now() - self._t0, 1e-9)
         record = {
             "step": step,
             "samples_per_sec": round(self._samples / dt, 2),
@@ -107,11 +112,16 @@ class ThroughputLogger:
             os.makedirs(os.path.dirname(self.log_path) or ".", exist_ok=True)
             with open(self.log_path, "a") as f:
                 f.write(line + "\n")
-        self._t0 = time.time()
+        self._t0 = self._now()
         self._samples = 0
         self.loss.reset()
         self._last_step = step
         return record
+
+    def _now(self) -> float:
+        if self.device is not None:
+            torch.cuda.synchronize(self.device)
+        return time.perf_counter()
 
 
 class Diagnostic:

@@ -22,7 +22,9 @@ converters fix (LNet's 9 decoder blocks, ParseNet's 10, RRDBNet's 23, the
   depth ``convert_gfpgan_v1`` fixes) or that holds a GANimation file
   loads them as s2v_tpu's ``load_models`` does (the same trees).
 - ``main(["infer", ...], device="cpu")`` writes the output file (one run
-  on a 4-frame 192^2 clip, shared by the module). The GPEN-BFR-2048 file is
+  on a 4-frame 192^2 clip, shared by the module) and, under
+  ``--trace_out``, its spans and counters as a Chrome trace: one
+  ``setup.load_models``, one ``infer.run``, every network of the run. The GPEN-BFR-2048 file is
   left out of that run: its final stage at 2048^2 costs over a minute on
   the CPU (the smoke runs it on the card).
 - ``--parallel.infer_mesh true`` with ``--parallel.data_parallel 2`` (two
@@ -42,6 +44,7 @@ machine.
 """
 
 import functools
+import json
 import os
 import wave
 
@@ -65,6 +68,7 @@ from s2v_torch.models.rrdbnet import RRDBNet, rrdbnet_arch
 from s2v_torch.models.s3fd import S3FD
 from s2v_torch.ops.warp import affine_warp_shear
 from s2v_torch.pipeline import inference as t_inf
+from s2v_torch.utils import trace
 from s2v_torch.utils.weights import load_torch_checkpoint
 from s2v_tpu import cli as j_cli
 from s2v_tpu.utils import weights as JW
@@ -384,11 +388,13 @@ def plain_infer(ckpt, tmp_path_factory):
             "--checkpoint_dir", root, "--model.dtype", "float32"]
     built = []
     real, record = recording_pipelines(built)
+    trace.reset()  # the trace file holds this run alone
     try:
         t_inf.LipSyncPipeline.__init__ = record
         with one_torch_thread():
             out = t_cli.main(argv + ["--outfile", str(work / "out" / "result.npz"),
-                                     "--tmp_dir", str(work / "tmp")], device="cpu")
+                                     "--tmp_dir", str(work / "tmp"),
+                                     "--trace_out", str(work / "trace.json")], device="cpu")
     finally:
         t_inf.LipSyncPipeline.__init__ = real
     return dict(work=work, argv=argv, audio=audio, out=out, pipeline=built[0])
@@ -403,6 +409,13 @@ def test_infer_end_to_end_on_the_cpu(plain_infer):
     assert data["frames"].shape == (n, 192, 192, 3) and data["frames"].dtype == np.uint8
     assert float(data["fps"]) == 25.0 and data["frames"].std() > 1.0
     assert len([f for f in os.listdir(work / "tmp") if f.startswith("clip_")]) == 5
+    spans = json.loads((work / "trace.json").read_text())
+    names = [e["name"] for e in spans["traceEvents"] if e["ph"] == "X"]
+    assert names.count("setup.load_models") == names.count("infer.run") == 1
+    assert {n for n in names if n.startswith("net.")} == {
+        "net.s3fd", "net.fan", "net.recon", "net.dnet", "net.enet", "net.retinaface",
+        "net.parsenet", "net.gfpgan"}
+    assert spans["counters"]["cache.miss"] == 5 and spans["dropped"] == 0
 
 
 def test_infer_mesh_matches_the_plain_run_and_jax(plain_infer, tmp_path):

@@ -12,8 +12,11 @@ a brightening by 9 gray levels on both sides (the GPEN enhancer has its own
 tests). Output tolerance as tests/test_torch_pipeline.py's.
 
 Then, on the port alone: a second run hits the cache (Steps 1-3 and 5 are
-not called, the output is the same), ``re_preprocess`` recomputes them, and
-``--crop`` takes effect and keys its own artifacts.
+not called, the output is the same; every lookup of the first run is a
+miss and every lookup of the second a hit, in the spans and the counters,
+and each run's spans form the tree of s2v_torch/utils/trace.py's names),
+``re_preprocess`` recomputes them, and ``--crop`` takes effect and keys its
+own artifacts.
 """
 
 import os
@@ -27,6 +30,7 @@ import jax.numpy as jnp
 
 from s2v_torch.pipeline import inference as t_inf
 from s2v_torch.utils import config as t_cfg
+from s2v_torch.utils import trace
 from s2v_tpu.pipeline import inference as j_inf
 from s2v_tpu.utils.config import override
 from test_torch_pipeline import assert_close_frames
@@ -124,21 +128,65 @@ def test_run_matches_jax(pipes, port_pipeline, tmp_path):  # noqa: F811
     assert sorted(os.listdir(tmp_path / "port_tmp")) == sorted(os.listdir(tmp_path / "jax_tmp"))
 
 
+def span_tree(records):
+    """The one run's spans as nested (name, tag, [children]) in start order."""
+    kids = {}
+    for r in sorted(records, key=lambda r: r.start):
+        kids.setdefault(r.parent, []).append(r)
+
+    def tree(r):
+        return (r.name, r.tag, [tree(c) for c in kids.get(r.id, [])])
+
+    [root] = kids[None]
+    return tree(root)
+
+
+SWEEP = ("step1.landmarks", None, [("net.s3fd", None, []), ("net.fan", None, [])])
+STEP6 = ("step6.synthesize", None, [
+    ("step6.reference_faces", None, [SWEEP]),
+    ("step6.lipsync", None, [("net.enet", None, [])]), ("step6.to_host", None, []),
+    ("step6.lipsync", None, [("net.enet", None, [])]), ("step6.to_host", None, [])])
+TAIL = [("audio.mel", None, []), STEP6, ("cache.flush", None, []), ("io.write", None, []),
+        ("io.mux", None, [])]
+FIRST_RUN = ("infer.run", None, [
+    ("io.read_clip", None, []),
+    ("cache.miss", "landmarks", [SWEEP]),
+    ("cache.miss", "ffhq", [("step1.ffhq_crop", None, [])]),
+    ("cache.miss", "coeffs", [SWEEP, ("step2.coeffs", None, [("net.recon", None, [])])]),
+    ("cache.miss", "stabilized", [("step3.stabilize", None, [("net.dnet", None, [])])]),
+    ("cache.miss", "enhanced5", [("step5.enhance_reference", None, [])])] + TAIL)
+SECOND_RUN = ("infer.run", None, [("io.read_clip", None, [])] + [
+    ("cache.hit", stage, []) for stage in ("landmarks", "ffhq", "coeffs", "stabilized",
+                                            "enhanced5")] + TAIL)
+
+
 def test_second_run_hits_the_cache_and_re_preprocess_recomputes(port_pipeline, tmp_path):
     make, calls = port_pipeline
     face, audio = write_inputs(tmp_path, clip())
     tmp = str(tmp_path / "tmp")
     calls.clear()
+    trace.reset()
     first = np.load(make(tmp_dir=tmp).run(face, audio, str(tmp_path / "a.npz")))["frames"]
     # Step 1's sweep, the crops' sweep and the reference faces' sweep
     assert sorted(calls) == sorted(["extract_landmarks"] * 3 + list(STEPS[1:]) + ["step5"])
     names = sorted(os.listdir(tmp))
     assert [n.split("_")[1] for n in names if n != "result.npz"] == [
         "coeffs", "enhanced5", "ffhq", "landmarks", "stabilized"]
+    artifact_bytes = sum(os.path.getsize(os.path.join(tmp, n)) for n in names
+                         if n != "result.npz")
+    assert span_tree(trace.records()) == FIRST_RUN
+    assert (trace.counter("cache.miss"), trace.counter("cache.hit")) == (5, 0)
+    assert (trace.counter("cache.bytes_written"), trace.counter("cache.bytes_read")) == (
+        artifact_bytes, 0)
     calls.clear()
+    trace.reset()
     second = np.load(make(tmp_dir=tmp).run(face, audio, str(tmp_path / "b.npz")))["frames"]
     assert calls == ["extract_landmarks"]  # Step 6's reference faces only
     np.testing.assert_array_equal(second, first)
+    assert span_tree(trace.records()) == SECOND_RUN
+    assert (trace.counter("cache.miss"), trace.counter("cache.hit")) == (0, 5)
+    assert (trace.counter("cache.bytes_written"), trace.counter("cache.bytes_read")) == (
+        0, artifact_bytes)
     calls.clear()
     make(tmp_dir=tmp, re_preprocess=True).run(face, audio, str(tmp_path / "c.npz"))
     assert sorted(calls) == sorted(["extract_landmarks"] * 3 + list(STEPS[1:]) + ["step5"])
