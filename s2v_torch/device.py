@@ -34,6 +34,28 @@ def full_f32():
         cudnn.allow_tf32, matmul.allow_tf32 = saved
 
 
+@contextlib.contextmanager
+def timed_convolutions():
+    """cuDNN's autotuner (``cudnn.benchmark``) on inside: the first call of
+    each convolution shape times cuDNN's candidate algorithms on the card
+    and keeps the fastest for the process; later calls of that shape reuse
+    it. Precision is the caller's: under ``full_f32`` only true f32
+    algorithms are candidates. cuDNN caches one plan per shape whichever
+    way it was chosen, so a shape must first run inside this context for
+    the timed plan to be the one kept. FAN runs so: cuDNN's heuristics send
+    its 3x3 f32 convolutions to FFT algorithms, which on an H100 take 2x
+    the time of the implicit GEMMs the autotuner finds at batch 32 and
+    16-26x at batches 18 and 15 (``tools/fan_conv_probe.py``). A no-op on
+    the CPU."""
+    cudnn = torch.backends.cudnn
+    saved = cudnn.benchmark
+    cudnn.benchmark = True
+    try:
+        yield
+    finally:
+        cudnn.benchmark = saved
+
+
 def bf16_autocast(device: torch.device, dtype: str):
     """bf16 autocast on ``device`` when ``dtype`` is "bfloat16" (the
     detectors' and ParseNet's ``model.detector_dtype``): their convs run in

@@ -62,7 +62,7 @@ import numpy as np
 import torch
 
 from s2v_torch.audio.melspec import mel_chunks_for_frames, melspectrogram, num_mel_chunks
-from s2v_torch.device import bf16_autocast, full_f32, resolve_device
+from s2v_torch.device import bf16_autocast, full_f32, resolve_device, timed_convolutions
 from s2v_torch.io.audio_io import load_wav
 from s2v_torch.io.video_io import VideoReader, VideoWriter, mux_audio
 from s2v_torch.models.fan import (box_to_center_scale, crop_faces_batched,
@@ -214,10 +214,17 @@ class LipSyncPipeline:
         """x [B, 3, H, W] RGB 0..255 -> (boxes, valid, landmarks [B, 68, 2])."""
         boxes, valid = self._detect(x)
         centers, scales = box_to_center_scale(boxes)
-        crops = crop_faces_batched(x, centers, scales)
-        with self._det_autocast():
-            hm = self._net("fan", crops, crops)
+        hm = self._fan(crop_faces_batched(x, centers, scales))
         return boxes, valid, heatmaps_to_landmarks(hm.float(), centers, scales)
+
+    def _fan(self, crops: torch.Tensor) -> torch.Tensor:
+        """FAN's heatmaps of crops [B, 3, 256, 256] in [0, 1], each
+        convolution's algorithm timed once per shape on the card
+        (``timed_convolutions``). Counter ``conv.timed.fan`` counts the
+        calls."""
+        with self._det_autocast(), timed_convolutions():
+            trace.count("conv.timed.fan")
+            return self._net("fan", crops, crops)
 
     @torch.no_grad()
     def _sweep(self, fn, frames, batch: int):

@@ -18,6 +18,10 @@ on the card, and a slim GPEN exported with ``torch.export`` launches K1
 and K3 from the loaded program, within 1e-5 of eager.
 """
 
+import os
+import subprocess
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -334,6 +338,109 @@ def test_fan_crop_and_decode_on_the_card_match_the_cpu(card):
     got = [crop_faces_batched(images.to(card), *cb), heatmaps_to_landmarks(hm.to(card), *cb)]
     assert (got[0].cpu() - want[0]).abs().max().item() <= 1e-5
     assert (got[1].cpu() - want[1]).abs().max().item() <= 1e-3
+
+
+def _fan_full_width(seed=17):
+    """2DFAN4 (4 modules, 256 features) with random weights and BatchNorm
+    statistics that are not the identity."""
+    from s2v_torch.models.fan import FAN
+
+    torch.manual_seed(seed)
+    fan = FAN(num_modules=4).eval()
+    g = torch.Generator().manual_seed(seed + 1)
+    with torch.no_grad():
+        for m in fan.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                n = m.num_features
+                m.running_mean.copy_(torch.rand(n, generator=g) * 0.2 - 0.1)
+                m.running_var.copy_(torch.rand(n, generator=g) + 0.5)
+                m.weight.copy_(torch.rand(n, generator=g) + 0.5)
+                m.bias.copy_(torch.rand(n, generator=g) * 0.2 - 0.1)
+    return fan
+
+
+# FAN under cuDNN's heuristic choice of algorithms, in a process of its own:
+# cuDNN keeps one plan per convolution shape in a process, whichever way it
+# was chosen, so in the test's process the two routes would share plans
+HEURISTIC_FAN = """
+import sys, torch
+from s2v_torch.device import full_f32
+from s2v_torch.models.fan import FAN
+state, crops, out = sys.argv[1:4]
+fan = FAN(num_modules=4).eval()
+fan.load_state_dict(torch.load(state))
+fan = fan.cuda()
+torch.backends.cudnn.benchmark = False
+with torch.no_grad(), full_f32():
+    torch.save([fan(c.cuda()).cpu() for c in torch.load(crops)], out)
+"""
+
+
+def _decode_margins(hm):
+    """Per landmark of heatmaps [B, 68, h, w], the least change that could
+    move its decode: the top-2 margin of the argmax and, at the argmax, the
+    gaps between the neighbours that set the +-0.25 steps."""
+    b, n, hh, ww = hm.shape
+    flat = hm.flatten(2)
+    top = flat.topk(2, dim=2)
+    py, px = top.indices[..., 0] // ww, top.indices[..., 0] % ww
+
+    def at(dy, dx):
+        return flat.gather(2, ((py + dy).clamp(0, hh - 1) * ww
+                               + (px + dx).clamp(0, ww - 1))[..., None])[..., 0]
+
+    return (top.values[..., 0] - top.values[..., 1]).minimum(
+        (at(0, 1) - at(0, -1)).abs()).minimum((at(1, 0) - at(-1, 0)).abs())
+
+
+@pytest.mark.cuda
+def test_fan_timed_route_on_the_card_matches_the_heuristic_route_and_the_cpu(card, tmp_path):
+    """Full-width FAN at batches 32 and 18 on 256^2 crops through the
+    pipeline's FAN call (``LipSyncPipeline._fan``: cuDNN's autotuner, f32
+    without TF32): once its plans are timed it runs no FFT kernel; its
+    heatmaps lie within 1e-4 of their scale of cuDNN's heuristic route's
+    and of the CPU's; and its landmarks decode equal to theirs wherever the
+    decode's margin (``_decode_margins``) exceeds twice the measured
+    difference (at least 95% of the landmarks)."""
+    from s2v_torch.device import full_f32
+    from s2v_torch.models.fan import heatmaps_to_landmarks
+    from s2v_torch.pipeline.inference import LipSyncPipeline, PipelineModels
+    from s2v_torch.utils.config import ModelConfig, PipelineConfig
+    from torch.profiler import ProfilerActivity, profile
+
+    fan = _fan_full_width()
+    g = torch.Generator().manual_seed(19)
+    crops = [torch.rand(b, 3, 256, 256, generator=g) for b in (32, 18)]
+    torch.save(fan.state_dict(), tmp_path / "fan.pt")
+    torch.save(crops, tmp_path / "crops.pt")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(filter(None, [root, os.environ.get("PYTHONPATH")])))
+    subprocess.run([sys.executable, "-c", HEURISTIC_FAN, str(tmp_path / "fan.pt"),
+                    str(tmp_path / "crops.pt"), str(tmp_path / "heuristic.pt")],
+                   check=True, env=env, cwd=root, timeout=600)
+    heuristic = torch.load(tmp_path / "heuristic.pt")
+    with torch.no_grad():
+        cpu = [fan(c) for c in crops]
+    pipe = LipSyncPipeline(PipelineConfig(model=ModelConfig(dtype="float32")),
+                           PipelineModels(fan=fan), device=card)
+    with torch.no_grad(), full_f32():
+        for c in crops:  # the autotuner's trials, FFT candidates among them
+            pipe._fan(c.to(card))
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            timed = [pipe._fan(c.to(card)).cpu() for c in crops]
+    kernels = [e.key for e in prof.key_averages() if e.device_time_total > 0]
+    assert not [k for k in kernels if "fft" in k.lower() or "cf32" in k], kernels
+    centers = torch.full((1, 2), 128.0)
+    scales = torch.full((1,), 1.28)
+    for t, h, c in zip(timed, heuristic, cpu):
+        got = heatmaps_to_landmarks(t, centers.expand(len(t), 2), scales.expand(len(t)))
+        for want in (h, c):
+            diff = (t - want).abs().max().item()
+            assert diff <= 1e-4 * max(1.0, want.abs().max().item())
+            held = _decode_margins(want) > 2 * diff
+            assert held.float().mean().item() >= 0.95
+            ref = heatmaps_to_landmarks(want, centers.expand(len(t), 2), scales.expand(len(t)))
+            assert torch.equal(got[held], ref[held])
 
 
 def _retinaface(backbone):
