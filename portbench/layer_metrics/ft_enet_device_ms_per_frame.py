@@ -1,0 +1,14 @@
+"""ENet/LNet's forward in the fine-tune step (span ``ft.enet``): its
+device time in ms per frame trained in the traced window's profiled steps,
+from every device operation whose host operation starts inside that span
+(core/finetune_trace.py)."""
+
+from portbench.core.finetune_trace import device_ms_per_frame
+
+UNIT, SOURCE, LAYER, MOVES = ("ms/frame", "device_trace",
+                              "fine-tune step (train/finetune_enet.py)", "train_pairs_per_s")
+BASE = "frames of the profiled steps: device time under ft.enet"
+
+
+def read(td):
+    return device_ms_per_frame(td, "ft.enet")

@@ -307,22 +307,18 @@ def find_audio(cfg) -> str:
     return best
 
 
-def train(cfg, device=None):
-    """The ``train`` command (s2v_tpu cli.py:274-323, reference
-    training.py): Steps 1-3 on the clip (no artifact cache, as s2v_tpu's
-    branch), ENet batches from DNet's stabilised frames
-    (``build_enet_batches``), then ``finetune`` of ENet's style convs with
-    the VGG16 perceptual term when a torchvision VGG16 file is in the
-    checkpoint directory and ReconNet's identity term when ReconNet is.
-    Checkpoints go to ``tmp_dir/enet_ckpt``, the log to
-    ``tmp_dir/train_log.jsonl``. Returns the final ``TrainState``."""
+def train_inputs(cfg, device=None):
+    """What the ``train`` command trains on: Steps 1-3 on the clip (no
+    artifact cache, as s2v_tpu's branch), then ENet batches from DNet's
+    stabilised frames (``build_enet_batches``). Returns (the pipeline over
+    ``load_models``' modules, the batches, the torchvision VGG16 of the
+    checkpoint directory as ``VGG16Features`` or None without that file)."""
     from s2v_torch.audio import melspectrogram
     from s2v_torch.io.audio_io import load_wav
     from s2v_torch.io.video_io import VideoReader
     from s2v_torch.models.vgg import vgg16_features
     from s2v_torch.pipeline.inference import LipSyncPipeline
     from s2v_torch.train.data import build_enet_batches
-    from s2v_torch.train.finetune_enet import finetune, make_id_embed_fn
     from s2v_torch.utils.weights import load_torch_checkpoint
 
     models = load_models(cfg.infer.checkpoint_dir, cfg, device=device)
@@ -346,11 +342,24 @@ def train(cfg, device=None):
         if os.path.isfile(path):
             vgg = vgg16_features(load_torch_checkpoint(path, key=None))
             break
-    state = finetune(models.enet, batches, cfg.train, device=pipe.device,
+    return pipe, batches, vgg
+
+
+def train(cfg, device=None):
+    """The ``train`` command (s2v_tpu cli.py:274-323, reference
+    training.py): ``train_inputs``, then ``finetune`` of ENet's style convs
+    with the VGG16 perceptual term when a torchvision VGG16 file is in the
+    checkpoint directory and ReconNet's identity term when ReconNet is.
+    Checkpoints go to ``tmp_dir/enet_ckpt``, the log to
+    ``tmp_dir/train_log.jsonl``. Returns the final ``TrainState``."""
+    from s2v_torch.train.finetune_enet import finetune, make_id_embed_fn
+
+    pipe, batches, vgg = train_inputs(cfg, device)
+    recon = pipe.models.recon
+    state = finetune(pipe.models.enet, batches, cfg.train, device=pipe.device,
                      checkpoint_dir=os.path.join(cfg.infer.tmp_dir, "enet_ckpt"),
                      log_path=os.path.join(cfg.infer.tmp_dir, "train_log.jsonl"),
-                     id_embed_fn=(make_id_embed_fn(models.recon)
-                                  if models.recon is not None else None),
+                     id_embed_fn=make_id_embed_fn(recon) if recon is not None else None,
                      vgg=vgg)
     print(f"trained {state.step} steps")
     return state

@@ -22,6 +22,7 @@ import torch.nn as nn
 
 from s2v_torch.parallel.mesh import allreduce_grads, allreduce_mean, data_group
 from s2v_torch.train.losses import l1_loss, perceptual_stub
+from s2v_torch.utils import trace
 
 
 @dataclass
@@ -85,11 +86,15 @@ def init_state(module: nn.Module, opt: torch.optim.Optimizer) -> TrainState:
 
 def apply_loss(state: TrainState, loss: torch.Tensor, group=None) -> None:
     """One optimizer step on ``loss``'s gradient, averaged over ``group``
-    when given; ``step`` advances."""
+    when given; ``step`` advances. The backward and the gradients' average
+    run inside span ``ft.backward``, the optimizer's step inside
+    ``ft.adam``."""
     state.opt.zero_grad(set_to_none=True)
-    loss.backward()
-    allreduce_grads(state.module.parameters(), group)
-    state.opt.step()
+    with trace.span("ft.backward"):
+        loss.backward()
+        allreduce_grads(state.module.parameters(), group)
+    with trace.span("ft.adam"):
+        state.opt.step()
     state.step += 1
 
 

@@ -12,11 +12,23 @@ the pipeline's bf16 autocast and ``no_grad`` methods. With a ``mesh`` it is
 data-parallel (``s2v_torch.train.finetune``): each rank takes its shard of
 every batch and the gradients are averaged over the data group; with no
 batch statistics in play, that is the global-batch step.
+
+On a card, the frozen LNet's forward is replayed from a CUDA graph
+(``Replay``), one captured at the first step of each input shape: at
+batch 16 it is 3,367 kernels of 17 us on average, which the host issued
+slower than the card ran them, so that the card idled for 2-3.5% of a
+step and the step's pace followed the host's load (PERF.md).
+
+Each step runs inside span ``ft.step`` (``s2v_torch.utils.trace``), with
+``ft.enet`` (ENet's forward), ``ft.perceptual`` (VGG16 on the prediction
+and the target), ``ft.identity`` (ReconNet on both), ``ft.backward`` and
+``ft.adam`` inside it, and adds its frames to counter ``ft.frames``.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Iterable, Optional
+import contextlib
+from typing import Callable, Dict, Iterable, List, Optional
 
 import numpy as np
 import torch
@@ -29,6 +41,7 @@ from s2v_torch.parallel.mesh import allreduce_mean, data_group, group_size
 from s2v_torch.train.finetune import (TrainState, apply_loss, init_state, make_optimizer,
                                       style_conv_mask)
 from s2v_torch.train.losses import identity_loss, l1_loss, perceptual_stub
+from s2v_torch.utils import trace
 
 BATCH_KEYS = ("mel", "face", "ref", "target")
 
@@ -47,6 +60,57 @@ def make_id_embed_fn(recon: nn.Module) -> Callable:
     return embed
 
 
+class Replay:
+    """A frozen module's forward replayed from CUDA graphs, one per input
+    shape and dtype, each captured at its first call (two eager calls on a
+    side stream first, as ``torch.cuda.graph`` asks). Inputs are copied
+    into the graph's own tensors and its output tensor is returned, the
+    same tensor at every call of that shape: read it before the next call.
+    Only for a module none of whose parameters learns, called on inputs
+    that need no gradient."""
+
+    def __init__(self, module: nn.Module):
+        self.module = module
+        self.graphs: Dict[tuple, tuple] = {}
+
+    def __call__(self, *args):
+        key = tuple((tuple(a.shape), a.dtype) for a in args)
+        if key not in self.graphs:
+            self.graphs[key] = self._capture(args)
+        graph, inputs, out = self.graphs[key]
+        for mine, a in zip(inputs, args):
+            mine.copy_(a)
+        graph.replay()
+        return out
+
+    def _capture(self, args) -> tuple:
+        forward = type(self.module).forward
+        inputs = tuple(a.detach().clone() for a in args)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side), torch.no_grad():
+            for _ in range(2):
+                forward(self.module, *inputs)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.no_grad(), torch.cuda.graph(graph):
+            out = forward(self.module, *inputs)
+        return graph, inputs, out
+
+
+@contextlib.contextmanager
+def _forward_from(module: nn.Module, replay: Optional[Replay]):
+    """``module``'s calls go to ``replay`` inside (none given: unchanged)."""
+    if replay is None:
+        yield
+        return
+    module.forward = replay
+    try:
+        yield
+    finally:
+        del module.forward
+
+
 def make_enet_finetune_step(enet: nn.Module, cfg, device=None,
                             id_embed_fn: Optional[Callable] = None,
                             vgg: Optional[nn.Module] = None, mesh=None):
@@ -60,30 +124,38 @@ def make_enet_finetune_step(enet: nn.Module, cfg, device=None,
     else the pyramid stand-in; ``id_embed_fn`` adds the identity term.
     ``device`` defaults to the card and raises without one; pass ``"cpu"``
     to train on the CPU on purpose. With a ``mesh`` the batches are this
-    rank's shards."""
+    rank's shards. On a card a frozen LNet runs through ``Replay``."""
     from s2v_torch.models.vgg import vgg_perceptual_loss
 
     dev = resolve_device(device)
     group = data_group(mesh)
     enet = enet.to(dev).eval()
     state = init_state(enet, make_optimizer(cfg.lr, enet, style_conv_mask))
+    lnet = enet.low_res
+    replay = (Replay(lnet) if dev.type == "cuda"
+              and not any(p.requires_grad for p in lnet.parameters()) else None)
     if vgg is not None:
         vgg = vgg.to(dev).eval().requires_grad_(False)
 
+    @trace.span("ft.step")
     def step(state: TrainState, batch) -> tuple:
         mel, face, ref, target = (
             torch.as_tensor(batch[k], device=dev).permute(0, 3, 1, 2).contiguous()
             for k in BATCH_KEYS)
+        trace.count("ft.frames", mel.shape[0])
         with full_f32():
-            pred, _ = state.module(mel, face, ref)
+            with trace.span("ft.enet"), _forward_from(lnet, replay):
+                pred, _ = state.module(mel, face, ref)
             loss_l1 = l1_loss(pred, target)
-            loss_p = (vgg_perceptual_loss(vgg, pred, target) if vgg is not None
-                      else perceptual_stub(pred, target))
+            with trace.span("ft.perceptual"):
+                loss_p = (vgg_perceptual_loss(vgg, pred, target) if vgg is not None
+                          else perceptual_stub(pred, target))
             loss = cfg.l1_weight * loss_l1 + cfg.perceptual_weight * loss_p
             metrics: Dict[str, torch.Tensor] = {"l1": loss_l1.detach(),
                                                 "perceptual": loss_p.detach()}
             if id_embed_fn is not None:
-                loss_id = identity_loss(pred, target, id_embed_fn)
+                with trace.span("ft.identity"):
+                    loss_id = identity_loss(pred, target, id_embed_fn)
                 loss = loss + cfg.id_weight * loss_id
                 metrics["id"] = loss_id.detach()
             metrics["loss"] = loss.detach()
@@ -91,6 +163,14 @@ def make_enet_finetune_step(enet: nn.Module, cfg, device=None,
         return state, allreduce_mean(metrics, group)
 
     return state, step
+
+
+def device_batches(batches: Iterable[Dict[str, np.ndarray]], device, n_ranks: int = 1,
+                   rank: int = 0) -> List[Dict[str, torch.Tensor]]:
+    """The batches' ``BATCH_KEYS`` on ``device``, once, in the layout the
+    step takes; with ``n_ranks`` > 1 each is this rank's shard."""
+    return [{k: torch.as_tensor(b[k], device=device).chunk(n_ranks)[rank] for k in BATCH_KEYS}
+            for b in batches]
 
 
 def finetune(enet: nn.Module, batches: Iterable[Dict[str, np.ndarray]], cfg, device=None,
@@ -119,8 +199,7 @@ def finetune(enet: nn.Module, batches: Iterable[Dict[str, np.ndarray]], cfg, dev
     state, step_fn = make_enet_finetune_step(enet, cfg, device, id_embed_fn=id_embed_fn,
                                              vgg=vgg, mesh=mesh)
     dev = next(enet.parameters()).device
-    batches = [{k: torch.as_tensor(b[k], device=dev).chunk(n_ranks)[rank] for k in BATCH_KEYS}
-               for b in batches]
+    batches = device_batches(batches, dev, n_ranks, rank)
     leader = is_leader()  # one log and one checkpoint for the whole group
     logger = ThroughputLogger(log_path if leader else None, every=10, device=dev)
     ckptr = (TrainCheckpointer(checkpoint_dir, per_rank=False)

@@ -19,7 +19,8 @@ sit inside a module's ``forward``.
 ``count(name, n=1)`` keeps plain integer totals (``counters``): the
 kernels' launches (``kernel.launch.<kernel>``), the artifact cache's hits,
 misses and bytes (``cache.*``), the kernel builds (``kernel.build``), FAN's
-calls under cuDNN's autotuner (``conv.timed.fan``).
+calls under cuDNN's autotuner (``conv.timed.fan``), the frames the ENet
+fine-tune step trained (``ft.frames``).
 
 ``write_chrome(path)`` writes the ring and the counters as a Chrome trace
 in the time base of the profiler's own export (microseconds since

@@ -240,3 +240,36 @@ def test_engine_elapsed_is_its_span_and_the_batches_have_theirs(tmp_path):
             pass
     made = [r for r in trace.records() if r.name == "data.face_batches"]
     assert len(made) == 3 and all(r.parent is None for r in trace.records())
+
+
+def test_the_finetune_step_nests_its_spans_and_counts_its_frames():
+    """``make_enet_finetune_step`` at batch 16 (a slim ENet and ReconNet,
+    the pyramid perceptual term): one ``ft.step`` a step, with ``ft.enet``,
+    ``ft.perceptual``, ``ft.identity``, ``ft.backward`` and ``ft.adam``
+    inside it in that order, and ``ft.frames`` up by 16 a step."""
+    from s2v_torch.models.enet import ENet
+    from s2v_torch.models.resnet import ReconNet
+    from s2v_torch.train.finetune_enet import make_enet_finetune_step, make_id_embed_fn
+    from s2v_torch.utils.config import TrainConfig
+
+    torch.manual_seed(0)
+    enet = ENet(num_style_feat=32, lnet_res_blocks=1, channel_multiplier=0.25, narrow=0.125,
+                lnet_base_nc=8, lnet_max_nc=16)
+    embed = make_id_embed_fn(ReconNet(layers=(1, 1, 1, 1), base_planes=8))
+    state, step = make_enet_finetune_step(enet, TrainConfig(), device="cpu", id_embed_fn=embed)
+    rng = np.random.RandomState(3)
+    batch = {"mel": rng.randn(16, 80, 16, 1).astype(np.float32),
+             "face": rng.rand(16, 96, 96, 6).astype(np.float32),
+             "ref": rng.rand(16, 96, 96, 3).astype(np.float32),
+             "target": rng.rand(16, 384, 384, 3).astype(np.float32)}
+    for n in (1, 2):
+        state, _ = step(state, batch)
+        assert trace.counter("ft.frames") == 16 * n
+    recs = trace.records()
+    steps = [r for r in recs if r.name == "ft.step"]
+    assert len(steps) == 2 and all(r.parent is None for r in steps)
+    inner = ["ft.enet", "ft.perceptual", "ft.identity", "ft.backward", "ft.adam"]
+    for s in steps:
+        kids = sorted((r for r in recs if r.parent == s.id), key=lambda r: r.start)
+        assert [r.name for r in kids] == inner
+        assert all(s.start <= r.start and r.end <= s.end for r in kids)
