@@ -31,8 +31,8 @@ import numpy as np
 
 DRIVER = "enet_steps"
 STEPS_FILES = ("s3fd.pth", "2DFAN4.pth", "DNet.pt", "BFM", "expression.mat")
-# the slim clip: 4 frames, two batches of 2
-SLIM_TRAFFIC = dict(clip_frames=4, speech_seconds=0.32)
+# the slim clip: 8 frames and 0.4 s of speech (7 mel chunks), batches of 2, 2, 2 and 1
+SLIM_TRAFFIC = dict(clip_frames=8, speech_seconds=0.4)
 
 
 def slim_sizes() -> dict:
@@ -195,9 +195,9 @@ def reference_step(torch, sizes: dict, weights: dict, device):
                      sizes["perceptual_weight"], sizes["id_weight"], device)
 
 
-def step_flops(torch, sizes: dict) -> int:
-    """FLOPs of one reference step at the configuration's batch, on the meta
-    device: ENet's forward, VGG16 on the prediction and the target,
+def step_flops(torch, sizes: dict, batch: int) -> int:
+    """FLOPs of one reference step on ``batch`` frames, on the meta device:
+    ENet's forward, VGG16 on the prediction and the target,
     ReconNet on both, and the backward from the loss to the style convs
     (the FFTs and Adam's elementwise work are not counted)."""
     from portbench.core.flops import count
@@ -209,7 +209,7 @@ def step_flops(torch, sizes: dict) -> int:
     params = dict(nets["enet"].named_parameters())
     for k in style_conv_names(nets["enet"]):
         params[k].requires_grad_(True)
-    n, s = sizes["batch"], sizes["img_size"]
+    n, s = batch, sizes["img_size"]
     batch = dict(mel=torch.empty(n, 1, 80, 16, device="meta"),
                  face=torch.empty(n, 6, s, s, device="meta"),
                  ref=torch.empty(n, 3, s, s, device="meta"),

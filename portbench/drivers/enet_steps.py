@@ -6,13 +6,18 @@ cache), draws the traffic's ``clip_frames``-frame clip and
 ``speech_seconds`` of speech from the seed, and builds what the command
 trains on: ``load_models``, Steps 1-3 and ``build_enet_batches`` (the
 configuration's ``program``), the batches moved to the card once. The
-fine-tune step then runs its first ``FIRST`` steps on batches 0, 1, 2;
-that same state carries on in the window, over the batches in turn.
+batches are as the ``train`` command builds them: of ``batch`` frames, the
+last of what is left (a 2.56 s clip gives 61 frames: 16, 16, 16, 13). The
+fine-tune step then runs its first ``FIRST`` steps on batches 0, 1, 2, and
+set-up goes on over the rest of the pass, so that every batch's shape has
+run before the window; that same state carries on in the window, over the
+batches in turn.
 
 End to end: ``train_pairs_per_s``, where a pair is one (masked face |
-reference, target) frame as training.py's datagen yields them: the steps
-completed in the window times the batch, over the window's wall (its start
-to the card's end of the last step issued once ``seconds`` have passed).
+reference, target) frame as training.py's datagen yields them: the frames
+of the steps completed in the window (each step's batch size), over the
+window's wall (its start to the card's end of the last step issued once
+``seconds`` have passed).
 The window waits for the card only at its end, as a loop that reads
 nothing back between steps runs; a wait after every step leaves each
 step's host-bound start (ENet's style encoder and LNet's small kernels) as
@@ -145,17 +150,20 @@ class Driver:
                                                                   self.device)
         self.bytes_written = du(cached) - before + du(self.dir)
         os.sync()  # the 1.3 GB of weight files' writeback belongs to set-up, not to the window
-        sizes_got = [len(b["mel"]) for b in self.batches]
-        if any(n != sizes["batch"] for n in sizes_got):
-            raise RuntimeError(f"the clip gave batches of {sizes_got} frames, not of "
-                               f"{sizes['batch']}")
         t0 = time.perf_counter()
         self.readings = first_steps(torch, self.state, self.step_fn, self.batches)
         synchronize(torch, self.device)
-        self.step = FIRST
         # the first steps' mean, cuDNN's first calls included: an estimate
         self.expected = max(PROFILED, math.ceil(self.seconds * FIRST / (time.perf_counter() - t0)))
-        self.info.update(batches=len(self.batches), first_losses=self.readings["losses"])
+        self.step = FIRST
+        while self.step < len(self.batches):  # the pass's other batches: their shapes warm up
+            self._step()
+        self.info.update(batch_frames=[self.frames(i) for i in range(len(self.batches))],
+                         first_losses=self.readings["losses"])
+
+    def frames(self, step: int) -> int:
+        """The frames of step ``step``'s batch."""
+        return len(self.batches[step % len(self.batches)]["mel"])
 
     def _step(self, spans=None) -> None:
         """One step; only the traced window's spans wait for the card after
@@ -178,8 +186,9 @@ class Driver:
         # host clock, then the profiled steps
         twin_at = math.ceil((self.step + self.expected // 2) / n) * n if trace else -1
         apart = {twin_at: (timed, []), twin_at + PROFILED: (profiled, [])} if trace else {}
+        profiled_frames = sum(self.frames(i) for i in range(PROFILED))
         t0 = time.perf_counter()
-        done = 0
+        done = frames = 0
         while True:
             if self.step in apart:
                 how, sink = apart[self.step]
@@ -189,26 +198,32 @@ class Driver:
                         self._step(spans)
                 spans.active = True
                 done += PROFILED
+                frames += profiled_frames
             else:
+                frames += self.frames(self.step)
                 self._step(spans)
                 done += 1
             if time.perf_counter() - t0 >= seconds and self.step > twin_at + PROFILED:
                 break
         synchronize(torch, self.device)
         wall = time.perf_counter() - t0
-        b = self.sizes["batch"]
         got = {how: sink[0] for how, sink in apart.values() if sink}
-        return dict(units=done * b, unit="pairs", wall_s=wall, attempted=done, failed=0,
-                    metric=done * b / wall, spans=spans,
-                    span_units=(done - 2 * PROFILED if trace else done) * b,
-                    profile=got.get(profiled), twin_s=got.get(timed), profiled_units=PROFILED * b)
+        return dict(units=frames, unit="pairs", wall_s=wall, attempted=done, failed=0,
+                    metric=frames / wall, spans=spans,
+                    span_units=frames - 2 * profiled_frames if trace else frames,
+                    profile=got.get(profiled), twin_s=got.get(timed),
+                    profiled_units=profiled_frames)
 
     def flop_s_at_peak(self) -> float:
-        """The FLOPs of the profiled steps' twin (``PROFILED`` steps) by the
-        reference, over the float32 peak (TF32 off)."""
+        """The FLOPs of the profiled steps' twin (``PROFILED`` steps from
+        batch 0, each at its batch's size) by the reference, over the float32
+        peak (TF32 off)."""
         from portbench.core.peaks import FLOP_PER_S
 
-        return PROFILED * self.cfg.step_flops(self.torch, self.sizes) / FLOP_PER_S["float32"]
+        per_batch = {n: self.cfg.step_flops(self.torch, self.sizes, n)
+                     for n in {self.frames(i) for i in range(PROFILED)}}
+        flops = sum(per_batch[self.frames(i)] for i in range(PROFILED))
+        return flops / FLOP_PER_S["float32"]
 
     def free(self) -> None:
         self.state = self.step_fn = None

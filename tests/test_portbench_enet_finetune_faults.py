@@ -3,20 +3,17 @@ benchmark's ``enet_finetune.clip_steps`` cell to ``correct`` false, on the
 CPU at slim sizes through ``run.execute`` (as
 ``test_portbench_enet_finetune.py`` runs the sound cell): the perceptual
 or the identity term reported but left out of the loss, each step on half
-of its batch, and a frozen leaf trained beside the style convs (the
-faults ``portbench/calibrate_finetune.py`` reads on the card)."""
+of its batch, and a frozen leaf trained beside the style convs. The faults
+are ``portbench/calibrate_finetune.py``'s own (``planted``), which reads
+them on the card."""
 
 from __future__ import annotations
 
-import dataclasses
-
 import pytest
 
-from s2v_torch.train import finetune_enet
+from portbench.calibrate_finetune import planted
 from test_portbench_enet_finetune import limits, run_cell, values
 from torch_parity import one_torch_thread
-
-FROZEN_LEAF = "to_rgbs.1.modulated_conv.weight"
 
 
 @pytest.fixture(autouse=True)
@@ -25,39 +22,12 @@ def _one_torch_thread():
         yield
 
 
-def weight_off(name):
-    def plant(monkeypatch):
-        make = finetune_enet.make_enet_finetune_step
-
-        def without(enet, cfg, *a, **k):
-            return make(enet, dataclasses.replace(cfg, **{name: 0.0}), *a, **k)
-
-        monkeypatch.setattr(finetune_enet, "make_enet_finetune_step", without)
-    return plant
-
-
-def half_batch(monkeypatch):
-    make = finetune_enet.make_enet_finetune_step
-
-    def halved(*a, **k):
-        state, step = make(*a, **k)
-        return state, lambda s, b: step(s, {key: v[: len(v) // 2] for key, v in b.items()})
-
-    monkeypatch.setattr(finetune_enet, "make_enet_finetune_step", halved)
-
-
-def frozen_leaf_trained(monkeypatch):
-    mask = finetune_enet.style_conv_mask
-    monkeypatch.setattr(finetune_enet, "style_conv_mask",
-                        lambda m: {k: v or k == FROZEN_LEAF for k, v in mask(m).items()})
-
-
-@pytest.mark.parametrize("plant", [weight_off("perceptual_weight"), weight_off("id_weight"),
-                                   half_batch, frozen_leaf_trained],
+@pytest.mark.parametrize("kind", ["fault_no_perceptual", "fault_no_identity", "fault_half_batch",
+                                  "fault_frozen_trained"],
                          ids=["no_perceptual", "no_identity", "half_batch", "frozen_trained"])
-def test_a_faulty_step_is_not_correct(plant, tmp_path, monkeypatch):
-    plant(monkeypatch)
-    out = run_cell(tmp_path, monkeypatch)
+def test_a_faulty_step_is_not_correct(kind, tmp_path, monkeypatch):
+    with planted(kind):
+        out = run_cell(tmp_path, monkeypatch)
     v, lim = values(out), limits()
     assert not out["correct"]
     assert any(v[k] > lim[k] for k in v), v
