@@ -181,6 +181,13 @@ def _priors_on(image_hw: Tuple[int, int], device: torch.device) -> torch.Tensor:
     return prior_box(image_hw).to(device)
 
 
+@functools.lru_cache(maxsize=None)
+def _scale_on(values: Tuple[float, ...], dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """A decode's pixel scale on ``device``, copied there once (a copy from
+    the host at every call would make the host wait for the card's queue)."""
+    return torch.tensor(values, dtype=dtype, device=device)
+
+
 def decode_boxes(loc: torch.Tensor, priors: torch.Tensor, image_hw) -> torch.Tensor:
     """box_utils.py:209-235 decode, scaled to pixels: loc [B, N, 4] ->
     [B, N, 4] x1y1x2y2."""
@@ -190,7 +197,7 @@ def decode_boxes(loc: torch.Tensor, priors: torch.Tensor, image_hw) -> torch.Ten
     wh = pri[..., 2:] * torch.exp(loc[..., 2:] * VARIANCES[1])
     x1y1 = cxcy - wh / 2
     boxes = torch.cat([x1y1, x1y1 + wh], dim=-1)
-    return boxes * torch.tensor([w, h, w, h], dtype=boxes.dtype, device=boxes.device)
+    return boxes * _scale_on((w, h, w, h), boxes.dtype, boxes.device)
 
 
 def decode_landms(ldm: torch.Tensor, priors: torch.Tensor, image_hw) -> torch.Tensor:
@@ -199,7 +206,7 @@ def decode_landms(ldm: torch.Tensor, priors: torch.Tensor, image_hw) -> torch.Te
     h, w = image_hw
     pri = priors[None, :, None]
     pts = pri[..., :2] + ldm.unflatten(-1, (5, 2)) * VARIANCES[0] * pri[..., 2:]
-    return (pts * torch.tensor([w, h], dtype=pts.dtype, device=pts.device)).flatten(-2)
+    return (pts * _scale_on((w, h), pts.dtype, pts.device)).flatten(-2)
 
 
 def detect_faces(outputs, image_hw, confidence_threshold: float = 0.9):

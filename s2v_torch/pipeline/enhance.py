@@ -20,14 +20,22 @@ mask restricted to the boxes, or over the full mask when no boxes are given.
 
 Public layout as s2v_tpu: NHWC uint8 frames, [N, 5, 2] landmarks in pre-SR
 pixel coordinates, x1y1x2y2 boxes. Inside, NCHW float tensors on the device.
+
+On a card, a network's call of one frame (the final stage's RealESRNet,
+RetinaFace and ParseNet) replays its forward from a CUDA graph
+(``s2v_torch.utils.graphs.Replay``): at one frame a call, about 2,100 ops a
+frame issued one by one set the stage's pace. GPEN-2048, which launches
+the port's own kernels, and calls of more frames stay eager.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+import functools
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn as nn
 import torch.nn.functional as F
 
 from s2v_torch.device import bf16_autocast, full_f32, resolve_device
@@ -38,6 +46,7 @@ from s2v_torch.ops.warp import affine_warp, affine_warp_shear
 from s2v_torch.parallel.mesh import map_frames, per_device_chunk, replica_on
 from s2v_torch.pipeline.utils import gaussian_blur, laplacian_pyramid_blend, mask_postprocess
 from s2v_torch.utils import trace
+from s2v_torch.utils.graphs import Replay, forward_from
 
 # align_faces.py:14-22
 REFERENCE_FACIAL_POINTS = np.array(
@@ -111,11 +120,22 @@ def umeyama_similarity_batched(src: torch.Tensor, dst: torch.Tensor):
     return torch.cat([rs, t[:, :, None]], dim=-1), sc
 
 
+@functools.lru_cache(maxsize=None)
+def _constants_on(device: torch.device) -> Dict[str, torch.Tensor]:
+    """RetinaFace's BGR means, the small-face kernel and the face colormap
+    on ``device``, copied there once: a copy from the host at every frame
+    synchronises with the card's queue, where the replayed networks would
+    leave the host ahead of it."""
+    return dict(mean=torch.tensor(RETINA_MEAN, device=device).view(1, 3, 1, 1),
+                small=torch.from_numpy(SMALL_FACE_KERNEL).to(device),
+                cmap=torch.tensor(FACE_MASK_COLORMAP, dtype=torch.float32, device=device))
+
+
 def small_face_filter(x: torch.Tensor) -> torch.Tensor:
     """cv2.filter2D with the 3x3 smoothing kernel, REFLECT_101 border
     (face_enhancement.py:153-154, for faces under 100 px)."""
     c = x.shape[1]
-    w = torch.from_numpy(SMALL_FACE_KERNEL).to(x)[None, None].repeat(c, 1, 1, 1)
+    w = _constants_on(x.device)["small"].to(x.dtype)[None, None].repeat(c, 1, 1, 1)
     return F.conv2d(F.pad(x, [1, 1, 1, 1], mode="reflect"), w, groups=c)
 
 
@@ -186,6 +206,7 @@ class FaceEnhancer:
         self.amp = dtype == "bfloat16" and self.device.type == "cuda"
         self.det_dtype = det_dtype
         self.warp = affine_warp_shear if approx_warp else affine_warp
+        self._replays: Dict[nn.Module, Replay] = {}
 
     def _autocast(self):
         return torch.autocast(self.device.type, dtype=torch.bfloat16,
@@ -193,18 +214,35 @@ class FaceEnhancer:
 
     def _run(self, name: str, x: torch.Tensor, *args, why: str = ""):
         """The model ``name`` (its replica on ``x``'s device) called on
-        ``args``, inside its span of ``NET_SPANS``."""
+        ``args``, inside its span of ``NET_SPANS``; through its ``Replay``
+        where ``_replay`` gives one."""
         if name not in self.models:
             raise ValueError(f"FaceEnhancer needs a '{name}' model {why}")
-        return trace.call(NET_SPANS[name], replica_on(self.models[name], x.device, self.mesh),
-                          *args)
+        module = replica_on(self.models[name], x.device, self.mesh)
+        replay = self._replay(name, module, args[0])
+        with trace.span(NET_SPANS[name]), forward_from(module, replay):
+            return module(*args)
+
+    def _replay(self, name: str, module: nn.Module, batch: torch.Tensor) -> Optional[Replay]:
+        """``module``'s ``Replay`` (one per module replica) for a call on
+        ``batch`` of one frame on a card, else None: the call stays eager.
+        One frame a call is the final stage's (``chunk`` 1 at 2048^2), where
+        the host's dispatch of each op sets the pace. A call of more frames
+        (Step 5's chunks of 16) dispatches a fraction of that per frame, and
+        a graph would hold a pool of all its frames' activations. GPEN-2048
+        launches the port's own kernels, so its ``Replay`` declines it."""
+        if batch.device.type != "cuda" or batch.shape[0] != 1:
+            return None
+        if module not in self._replays:
+            self._replays[module] = Replay(module, tag=NET_SPANS[name])
+        return self._replays[module]
 
     @torch.no_grad()
     def _detect(self, x: torch.Tensor):
         """RetinaFace on frames [k, 3, H, W] RGB 0..255 (enhance.py
         detect_tfms): (landmarks [k, 5, 2], small [k], valid [k]); ``small``
         when the box's shorter side is under 100 px."""
-        mean = torch.tensor(RETINA_MEAN, device=x.device).view(1, 3, 1, 1)
+        mean = _constants_on(x.device)["mean"]
         with full_f32(), bf16_autocast(x.device, self.det_dtype):
             outs = self._run("retinaface", x, x.flip(1) - mean,
                              why="unless landmarks5 are supplied")
@@ -229,7 +267,7 @@ class FaceEnhancer:
         efp = resize_bilinear(ef, (ps, ps))
         with self._autocast():
             logits, _ = self._run("parsenet", efp, efp / 255.0 * 2.0 - 1.0)
-        mask_sharp = parse_mask(logits.float(), FACE_MASK_COLORMAP)[:, None] / 255.0
+        mask_sharp = parse_mask(logits.float(), _constants_on(efp.device)["cmap"])[:, None] / 255.0
         mask_sharp = resize_bilinear(mask_sharp, (512, 512))
         tmp_mask = resize_bilinear(mask_postprocess(mask_sharp, thres=26), (s, s))
         ef = torch.where(small[:, None, None, None], small_face_filter(ef), ef)

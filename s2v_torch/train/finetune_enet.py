@@ -14,7 +14,8 @@ every batch and the gradients are averaged over the data group; with no
 batch statistics in play, that is the global-batch step.
 
 On a card, the frozen LNet's forward is replayed from a CUDA graph
-(``Replay``), one captured at the first step of each input shape: at
+(``s2v_torch.utils.graphs.Replay``: the first step runs it eagerly, then
+one graph is captured at the next step of each input shape): at
 batch 16 it is 3,367 kernels of 17 us on average, which the host issued
 slower than the card ran them, so that the card idled for 2-3.5% of a
 step and the step's pace followed the host's load (PERF.md).
@@ -27,7 +28,6 @@ and the target), ``ft.identity`` (ReconNet on both), ``ft.backward`` and
 
 from __future__ import annotations
 
-import contextlib
 from typing import Callable, Dict, Iterable, List, Optional
 
 import numpy as np
@@ -42,6 +42,7 @@ from s2v_torch.train.finetune import (TrainState, apply_loss, init_state, make_o
                                       style_conv_mask)
 from s2v_torch.train.losses import identity_loss, l1_loss, perceptual_stub
 from s2v_torch.utils import trace
+from s2v_torch.utils.graphs import Replay, forward_from
 
 BATCH_KEYS = ("mel", "face", "ref", "target")
 
@@ -58,57 +59,6 @@ def make_id_embed_fn(recon: nn.Module) -> Callable:
         return recon(resize_bilinear(pred01, (224, 224)))
 
     return embed
-
-
-class Replay:
-    """A frozen module's forward replayed from CUDA graphs, one per input
-    shape and dtype, each captured at its first call (two eager calls on a
-    side stream first, as ``torch.cuda.graph`` asks). Inputs are copied
-    into the graph's own tensors and its output tensor is returned, the
-    same tensor at every call of that shape: read it before the next call.
-    Only for a module none of whose parameters learns, called on inputs
-    that need no gradient."""
-
-    def __init__(self, module: nn.Module):
-        self.module = module
-        self.graphs: Dict[tuple, tuple] = {}
-
-    def __call__(self, *args):
-        key = tuple((tuple(a.shape), a.dtype) for a in args)
-        if key not in self.graphs:
-            self.graphs[key] = self._capture(args)
-        graph, inputs, out = self.graphs[key]
-        for mine, a in zip(inputs, args):
-            mine.copy_(a)
-        graph.replay()
-        return out
-
-    def _capture(self, args) -> tuple:
-        forward = type(self.module).forward
-        inputs = tuple(a.detach().clone() for a in args)
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side), torch.no_grad():
-            for _ in range(2):
-                forward(self.module, *inputs)
-        torch.cuda.current_stream().wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        with torch.no_grad(), torch.cuda.graph(graph):
-            out = forward(self.module, *inputs)
-        return graph, inputs, out
-
-
-@contextlib.contextmanager
-def _forward_from(module: nn.Module, replay: Optional[Replay]):
-    """``module``'s calls go to ``replay`` inside (none given: unchanged)."""
-    if replay is None:
-        yield
-        return
-    module.forward = replay
-    try:
-        yield
-    finally:
-        del module.forward
 
 
 def make_enet_finetune_step(enet: nn.Module, cfg, device=None,
@@ -144,7 +94,7 @@ def make_enet_finetune_step(enet: nn.Module, cfg, device=None,
             for k in BATCH_KEYS)
         trace.count("ft.frames", mel.shape[0])
         with full_f32():
-            with trace.span("ft.enet"), _forward_from(lnet, replay):
+            with trace.span("ft.enet"), forward_from(lnet, replay):
                 pred, _ = state.module(mel, face, ref)
             loss_l1 = l1_loss(pred, target)
             with trace.span("ft.perceptual"):

@@ -178,3 +178,33 @@ def test_the_ring_readers_read_nothing_without_the_programs_ring(clock, monkeypa
     td = window([(10, 20)])
     for name in ("cache_hit_pct", "output_write_ms_per_frame", "load_models_s"):
         assert reader(name).read(td) is None
+
+
+def nested(clock, outer, inner, a, b, tag=None):
+    """Span ``outer`` over [a, b] with span ``inner`` (tag ``tag``) inside."""
+    clock(a)
+    s = trace.span(outer)
+    s.__enter__()
+    spanned(clock, inner, a + 0.1, b - 0.1, tag)
+    clock(b)
+    s.__exit__(None, None, None)
+
+
+def test_graph_replay_pct_reads_the_window_share_of_network_calls_replayed(clock, monkeypatch):
+    """Three network calls in the window request at [10, 20], two of them
+    holding a replay; a capture, and a replay in the profiled request at
+    [30, 40], count for nothing."""
+    nested(clock, "net.sr", "graph.capture", 1, 2, "net.sr")
+    nested(clock, "net.sr", "graph.replay", 11, 12, "net.sr")
+    nested(clock, "net.gpen", "io.write", 12, 13)
+    nested(clock, "net.retinaface", "graph.replay", 13, 14, "net.retinaface")
+    spanned(clock, "step6.final_stage", 14, 15)
+    spanned(clock, "net.parsenet", 31, 32)
+    nested(clock, "net.sr", "graph.replay", 33, 34, "net.sr")
+    td = window([(10, 20)])
+    assert reader("graph_replay_pct").read(td) == pytest.approx(100 * 2 / 3)
+    assert reader("graph_replay_pct").read(window([(30, 40)])) == pytest.approx(50.0)
+    assert reader("graph_replay_pct").read(window([(40.5, 41)])) is None
+    # a program without graph replay (no s2v_torch.utils.graphs) reads nothing
+    monkeypatch.setitem(sys.modules, "s2v_torch.utils.graphs", None)
+    assert reader("graph_replay_pct").read(td) is None

@@ -1078,3 +1078,65 @@ def test_exported_gpen_launches_its_kernels_on_the_card(card):
     k1, k3 = kernel_sites(g)
     assert launch_counts() == {"fused_act": k1, "fused_act_bwd": 0, "upfirdn2d": k3}
     assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_final_stage_replays_its_one_frame_networks_bit_for_bit(card, monkeypatch):
+    """The final stage (GPEN-BFR-2048, RealESRNet x2, RetinaFace-R50 and
+    ParseNet at published widths, random weights, bf16 generators) over
+    3 different 512^2 frames, twice, replayed as on the main path and all
+    eager: every output frame equals the eager one bit for bit (a graph's
+    output read after the next frame's replay would give that frame's
+    pixels). RealESRNet, RetinaFace and ParseNet are captured once each, at
+    their one shape, and replayed from then on; GPEN-2048 is declined and
+    launches K1 and K3 as often as eager. Once captured, the stage makes the
+    host wait for the card nowhere (CUDA's sync debug mode raises there)."""
+    import collections
+
+    from s2v_torch.models.gpen import FullGenerator
+    from s2v_torch.models.parsenet import ParseNet
+    from s2v_torch.models.rrdbnet import RRDBNet
+    from s2v_torch.ops.kernels import reset_launch_counts
+    from s2v_torch.pipeline.enhance import FaceEnhancer, final_enhancer_hook
+    from s2v_torch.utils import trace
+
+    torch.manual_seed(14)
+    models = dict(retinaface=_retinaface("re50"), facegan=FullGenerator(size=2048).eval(),
+                  parsenet=ParseNet().eval(),
+                  srmodel=RRDBNet(scale=2, num_feat=32, num_block=23, num_grow_ch=32).eval())
+    frames = _frames(3, 512, 512, 15).to(card)
+    boxes = np.tile(np.asarray([[128, 128, 384, 384]], np.float32), (3, 1))
+
+    def run(replayed):
+        enh = FaceEnhancer(models, in_size=2048, dtype="bfloat16", parse_size=512, device=card)
+        if not replayed:
+            monkeypatch.setattr(enh, "_replay", lambda *a: None)
+        passes = []
+        for k in range(2):
+            reset_launch_counts()
+            torch.cuda.set_sync_debug_mode("error" if replayed and k else "default")
+            try:
+                out = final_enhancer_hook(enh)(frames, boxes)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            passes.append((out.cpu(), launch_counts()))
+        return enh, passes
+
+    trace.reset()
+    _, eager = run(False)
+    assert not [r for r in trace.records() if r.name.startswith("graph.")]
+    trace.reset()
+    enh, replayed = run(True)
+    records = trace.records()
+    for (got, got_launches), (want, want_launches) in zip(replayed, eager):
+        assert got.shape == (3, 1024, 1024, 3)
+        assert all(torch.equal(got[i], want[i]) for i in range(3))
+        assert got_launches == want_launches and got_launches["fused_act"] > 0
+    assert sorted(r.tag for r in records if r.name == "graph.capture") == [
+        "net.parsenet", "net.retinaface", "net.sr"]
+    # each network's first call runs eagerly, the second captures and replays
+    assert collections.Counter(r.tag for r in records if r.name == "graph.replay") == {
+        "net.sr": 5, "net.retinaface": 5, "net.parsenet": 5}
+    gpen = enh._replays[models["facegan"]]
+    assert gpen.declined is True and not gpen.graphs
+    trace.reset()
