@@ -1,9 +1,11 @@
-"""Device selection for the port's entry points, and the f32 policy of its
-detection and regression nets."""
+"""Device selection for the port's entry points, the precision policies of
+its networks (``precision``, applied by ``s2v_torch.pipeline.nets``) and
+constants kept on a device (``constant_on``)."""
 
 from __future__ import annotations
 
 import contextlib
+import functools
 from typing import Optional, Union
 
 import torch
@@ -23,8 +25,7 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
 @contextlib.contextmanager
 def full_f32():
     """f32 convolutions and matmuls in full f32 inside, without TF32 (cuDNN
-    allows TF32 by default). S3FD, FAN and ReconNet run so: their boxes,
-    landmarks and coefficients keep f32 precision, as in s2v_tpu."""
+    allows it by default): boxes, landmarks and coefficients as s2v_tpu's."""
     cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
     saved = cudnn.allow_tf32, matmul.allow_tf32
     cudnn.allow_tf32 = matmul.allow_tf32 = False
@@ -56,11 +57,26 @@ def timed_convolutions():
         cudnn.benchmark = saved
 
 
-def bf16_autocast(device: torch.device, dtype: str):
-    """bf16 autocast on ``device`` when ``dtype`` is "bfloat16" (the
-    detectors' and ParseNet's ``model.detector_dtype``): their convs run in
-    bf16 with the weights cast to it, as s2v_tpu casts its input and its
-    convs the weights (ops/convs.py:154-165), on the card and on the CPU
-    alike; a no-op for "float32". Callers cast the outputs to f32 before
-    any decode."""
-    return torch.autocast(device.type, dtype=torch.bfloat16, enabled=dtype == "bfloat16")
+@contextlib.contextmanager
+def precision(policy: str, device: torch.device, dtype: str):
+    """A network's precision policy on ``device`` (``s2v_torch.pipeline.nets``):
+    "f32" is full f32; "detector" full f32 with bf16 autocast on any device
+    when ``dtype`` (``model.detector_dtype``) is "bfloat16" (the convs cast
+    their weights, as s2v_tpu's do, ops/convs.py:154-165; callers decode in
+    f32); "generator" bf16 autocast on a card when ``dtype``
+    (``model.dtype``) is "bfloat16", the TF32 flags as the caller left them."""
+    f32 = contextlib.nullcontext() if policy == "generator" else full_f32()
+    cast = contextlib.nullcontext() if policy == "f32" else torch.autocast(
+        device.type, dtype=torch.bfloat16,
+        enabled=dtype == "bfloat16" and (policy == "detector" or device.type == "cuda"))
+    with f32, cast:
+        yield
+
+
+@functools.lru_cache(maxsize=None)
+def constant_on(values, device: torch.device, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """``values`` (a tuple of numbers or of tuples, or a host tensor its
+    maker caches, keyed by identity) as a ``dtype`` tensor on ``device``,
+    copied once: a copy from pageable memory at every call makes the host
+    wait for the card's queue. Shared: callers do not write to it."""
+    return torch.as_tensor(values, dtype=dtype, device=device)

@@ -20,6 +20,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from s2v_torch.device import constant_on
 from s2v_torch.models.resnet import ResNet
 from s2v_torch.ops.image import resize_nearest
 
@@ -162,7 +163,7 @@ class RetinaFace(nn.Module):
 def prior_box(image_hw: Tuple[int, int]) -> torch.Tensor:
     """prior_box.py:7-34: [N, 4] anchors (cx, cy, w, h), normalised to the
     image, in the heads' order (level, row, column, min size). Cached per
-    size; callers copy it to their device and do not write to it."""
+    size; ``constant_on`` keeps its device copies; not written to."""
     h, w = image_hw
     anchors = []
     for step, sizes in zip(STEPS, MIN_SIZES):
@@ -171,21 +172,6 @@ def prior_box(image_hw: Tuple[int, int]) -> torch.Tensor:
                                 (np.arange(fw) + 0.5) * step / w, sizes, indexing="ij")
         anchors.append(np.stack([cx, cy, s / w, s / h], -1).reshape(-1, 4))
     return torch.from_numpy(np.concatenate(anchors).astype(np.float32))
-
-
-@functools.lru_cache(maxsize=None)
-def _priors_on(image_hw: Tuple[int, int], device: torch.device) -> torch.Tensor:
-    """``prior_box`` on ``device``, copied there once: a copy of the
-    anchors (688 KB at 1024^2) from pageable memory at every call would make
-    the host wait for the card's queue."""
-    return prior_box(image_hw).to(device)
-
-
-@functools.lru_cache(maxsize=None)
-def _scale_on(values: Tuple[float, ...], dtype: torch.dtype, device: torch.device) -> torch.Tensor:
-    """A decode's pixel scale on ``device``, copied there once (a copy from
-    the host at every call would make the host wait for the card's queue)."""
-    return torch.tensor(values, dtype=dtype, device=device)
 
 
 def decode_boxes(loc: torch.Tensor, priors: torch.Tensor, image_hw) -> torch.Tensor:
@@ -197,7 +183,7 @@ def decode_boxes(loc: torch.Tensor, priors: torch.Tensor, image_hw) -> torch.Ten
     wh = pri[..., 2:] * torch.exp(loc[..., 2:] * VARIANCES[1])
     x1y1 = cxcy - wh / 2
     boxes = torch.cat([x1y1, x1y1 + wh], dim=-1)
-    return boxes * _scale_on((w, h, w, h), boxes.dtype, boxes.device)
+    return boxes * constant_on((w, h, w, h), boxes.device, boxes.dtype)
 
 
 def decode_landms(ldm: torch.Tensor, priors: torch.Tensor, image_hw) -> torch.Tensor:
@@ -206,7 +192,7 @@ def decode_landms(ldm: torch.Tensor, priors: torch.Tensor, image_hw) -> torch.Te
     h, w = image_hw
     pri = priors[None, :, None]
     pts = pri[..., :2] + ldm.unflatten(-1, (5, 2)) * VARIANCES[0] * pri[..., 2:]
-    return (pts * _scale_on((w, h), pts.dtype, pts.device)).flatten(-2)
+    return (pts * constant_on((w, h), pts.device, pts.dtype)).flatten(-2)
 
 
 def detect_faces(outputs, image_hw, confidence_threshold: float = 0.9):
@@ -215,7 +201,7 @@ def detect_faces(outputs, image_hw, confidence_threshold: float = 0.9):
     the argmax of the face score over every anchor. Returns (boxes [B, 4]
     px, landms [B, 5, 2] px, valid [B]: score > threshold)."""
     loc, conf, ldm = outputs
-    priors = _priors_on(tuple(image_hw), loc.device)
+    priors = constant_on(prior_box(tuple(image_hw)), loc.device)
     scores = conf[..., 1]
     idx = torch.argmax(scores, dim=1)
     rows = torch.arange(len(idx), device=idx.device)

@@ -21,32 +21,26 @@ mask restricted to the boxes, or over the full mask when no boxes are given.
 Public layout as s2v_tpu: NHWC uint8 frames, [N, 5, 2] landmarks in pre-SR
 pixel coordinates, x1y1x2y2 boxes. Inside, NCHW float tensors on the device.
 
-On a card, a network's call of one frame (the final stage's RealESRNet,
-RetinaFace and ParseNet) replays its forward from a CUDA graph
-(``s2v_torch.utils.graphs.Replay``): at one frame a call, about 2,100 ops a
-frame issued one by one set the stage's pace. GPEN-2048, which launches
-the port's own kernels, and calls of more frames stay eager.
+Each network is called through its ``s2v_torch.pipeline.nets.Net``
+(stage ``enhancer``), which sets its precision and, for the final stage's
+one-frame calls on a card, replays it from a CUDA graph.
 """
 
 from __future__ import annotations
 
-import functools
-from typing import Dict, Optional, Tuple
+from typing import Tuple
 
 import numpy as np
 import torch
-import torch.nn as nn
 import torch.nn.functional as F
 
-from s2v_torch.device import bf16_autocast, full_f32, resolve_device
+from s2v_torch.device import constant_on, resolve_device
 from s2v_torch.models.parsenet import parse_mask
-from s2v_torch.models.retinaface import RETINA_MEAN, detect_faces
 from s2v_torch.ops.image import frames_to_nchw, resize_bilinear
 from s2v_torch.ops.warp import affine_warp, affine_warp_shear
-from s2v_torch.parallel.mesh import map_frames, per_device_chunk, replica_on
+from s2v_torch.parallel.mesh import map_frames, per_device_chunk
+from s2v_torch.pipeline.nets import retinaface_detect, stage_nets
 from s2v_torch.pipeline.utils import gaussian_blur, laplacian_pyramid_blend, mask_postprocess
-from s2v_torch.utils import trace
-from s2v_torch.utils.graphs import Replay, forward_from
 
 # align_faces.py:14-22
 REFERENCE_FACIAL_POINTS = np.array(
@@ -56,17 +50,13 @@ REFERENCE_FACIAL_POINTS = np.array(
 DEFAULT_CROP_SIZE = (96, 112)
 
 # the small-face smoothing kernel (face_enhancement.py:72-75)
-SMALL_FACE_KERNEL = np.array([[0.0625, 0.125, 0.0625],
-                              [0.125, 0.25, 0.125],
-                              [0.0625, 0.125, 0.0625]], np.float32)
-
-# the span of each model's call (``s2v_torch.utils.trace``)
-NET_SPANS = {"retinaface": "net.retinaface", "parsenet": "net.parsenet", "facegan": "net.gpen",
-             "srmodel": "net.sr"}
+SMALL_FACE_KERNEL = ((0.0625, 0.125, 0.0625),
+                     (0.125, 0.25, 0.125),
+                     (0.0625, 0.125, 0.0625))
 
 # face-region colormap of the blending mask (face_enhancement.py:141)
-FACE_MASK_COLORMAP = [0, 255, 255, 255, 255, 255, 255, 255, 0, 0, 255, 255,
-                      255, 0, 0, 0, 0, 0, 0]
+FACE_MASK_COLORMAP = (0, 255, 255, 255, 255, 255, 255, 255, 0, 0, 255, 255,
+                      255, 0, 0, 0, 0, 0, 0)
 
 
 def get_reference_facial_points(output_size: Tuple[int, int],
@@ -120,22 +110,11 @@ def umeyama_similarity_batched(src: torch.Tensor, dst: torch.Tensor):
     return torch.cat([rs, t[:, :, None]], dim=-1), sc
 
 
-@functools.lru_cache(maxsize=None)
-def _constants_on(device: torch.device) -> Dict[str, torch.Tensor]:
-    """RetinaFace's BGR means, the small-face kernel and the face colormap
-    on ``device``, copied there once: a copy from the host at every frame
-    synchronises with the card's queue, where the replayed networks would
-    leave the host ahead of it."""
-    return dict(mean=torch.tensor(RETINA_MEAN, device=device).view(1, 3, 1, 1),
-                small=torch.from_numpy(SMALL_FACE_KERNEL).to(device),
-                cmap=torch.tensor(FACE_MASK_COLORMAP, dtype=torch.float32, device=device))
-
-
 def small_face_filter(x: torch.Tensor) -> torch.Tensor:
     """cv2.filter2D with the 3x3 smoothing kernel, REFLECT_101 border
     (face_enhancement.py:153-154, for faces under 100 px)."""
     c = x.shape[1]
-    w = _constants_on(x.device)["small"].to(x.dtype)[None, None].repeat(c, 1, 1, 1)
+    w = constant_on(SMALL_FACE_KERNEL, x.device, x.dtype)[None, None].repeat(c, 1, 1, 1)
     return F.conv2d(F.pad(x, [1, 1, 1, 1], mode="reflect"), w, groups=c)
 
 
@@ -173,15 +152,14 @@ class FaceEnhancer:
     has ``face_enhance=False``, as Step 5's does: s2v_tpu builds it there
     and never runs it) and 'srmodel' (RRDBNet, optional: when present, frames
     are super-resolved by its ``scale`` and composited over the SR frame).
-    ``dtype`` is the generators' compute dtype on the card (autocast);
-    RetinaFace runs in full f32 (no TF32), or with bf16 convs when
-    ``det_dtype`` is bfloat16 (config ``model.detector_dtype``; the decode
-    stays f32); warps, masks and composites in f32. ``approx_warp`` (config
-    ``model.approx_warp``) takes ``affine_warp_shear`` for the crop and
-    paste warps. ``mesh`` (a ``FrameMesh``) splits each chunk's frames over
-    its data axis, each slice on the modules' replica on its device; a chunk
-    then holds ``chunk`` frames per data device, so the 2048^2 stage's one
-    frame a device runs on every device too.
+    ``dtype`` and ``det_dtype`` are ``model.dtype`` and
+    ``model.detector_dtype`` (``nets``); warps, masks and composites run in
+    f32. ``approx_warp`` (config ``model.approx_warp``) takes
+    ``affine_warp_shear`` for the crop and paste warps. ``mesh`` (a
+    ``FrameMesh``) splits each chunk's frames over its data axis, each
+    slice on the modules' replica on its device; a chunk then holds
+    ``chunk`` frames per data device, so the 2048^2 stage's one frame a
+    device runs on every device too.
     """
 
     def __init__(self, models: dict, in_size: int = 512, threshold: float = 0.9,
@@ -203,51 +181,15 @@ class FaceEnhancer:
         self.reference_5pts = torch.from_numpy(
             get_reference_facial_points((in_size, in_size), 0.25, (0, 0), True)
         ).to(self.device)
-        self.amp = dtype == "bfloat16" and self.device.type == "cuda"
-        self.det_dtype = det_dtype
         self.warp = affine_warp_shear if approx_warp else affine_warp
-        self._replays: Dict[nn.Module, Replay] = {}
+        self.nets = stage_nets("enhancer", self.models.get, dtype=dtype, det_dtype=det_dtype,
+                               mesh=mesh, owner="FaceEnhancer")
 
-    def _autocast(self):
-        return torch.autocast(self.device.type, dtype=torch.bfloat16,
-                              enabled=self.amp)
-
-    def _run(self, name: str, x: torch.Tensor, *args, why: str = ""):
-        """The model ``name`` (its replica on ``x``'s device) called on
-        ``args``, inside its span of ``NET_SPANS``; through its ``Replay``
-        where ``_replay`` gives one."""
-        if name not in self.models:
-            raise ValueError(f"FaceEnhancer needs a '{name}' model {why}")
-        module = replica_on(self.models[name], x.device, self.mesh)
-        replay = self._replay(name, module, args[0])
-        with trace.span(NET_SPANS[name]), forward_from(module, replay):
-            return module(*args)
-
-    def _replay(self, name: str, module: nn.Module, batch: torch.Tensor) -> Optional[Replay]:
-        """``module``'s ``Replay`` (one per module replica) for a call on
-        ``batch`` of one frame on a card, else None: the call stays eager.
-        One frame a call is the final stage's (``chunk`` 1 at 2048^2), where
-        the host's dispatch of each op sets the pace. A call of more frames
-        (Step 5's chunks of 16) dispatches a fraction of that per frame, and
-        a graph would hold a pool of all its frames' activations. GPEN-2048
-        launches the port's own kernels, so its ``Replay`` declines it."""
-        if batch.device.type != "cuda" or batch.shape[0] != 1:
-            return None
-        if module not in self._replays:
-            self._replays[module] = Replay(module, tag=NET_SPANS[name])
-        return self._replays[module]
-
-    @torch.no_grad()
     def _detect(self, x: torch.Tensor):
         """RetinaFace on frames [k, 3, H, W] RGB 0..255 (enhance.py
         detect_tfms): (landmarks [k, 5, 2], small [k], valid [k]); ``small``
         when the box's shorter side is under 100 px."""
-        mean = _constants_on(x.device)["mean"]
-        with full_f32(), bf16_autocast(x.device, self.det_dtype):
-            outs = self._run("retinaface", x, x.flip(1) - mean,
-                             why="unless landmarks5 are supplied")
-        boxes, landms, valid = detect_faces(tuple(o.float() for o in outs), x.shape[2:],
-                                            self.threshold)
+        boxes, landms, valid = retinaface_detect(self.nets["retinaface"], x, self.threshold)
         small = torch.minimum(boxes[:, 2] - boxes[:, 0], boxes[:, 3] - boxes[:, 1]) < 100
         return landms, small, valid
 
@@ -260,14 +202,13 @@ class FaceEnhancer:
         s, ps = self.in_size, self.parse_size
         ef = self.warp(x, tfms, (s, s))
         if face_enhance:
-            with self._autocast():
-                ef = self._run("facegan", x, ef / 255.0 * 2.0 - 1.0, why="for face_enhance=True")
+            ef = self.nets["facegan"](ef / 255.0 * 2.0 - 1.0)
             ef = torch.clamp((ef.float() + 1.0) / 2.0, 0.0, 1.0) * 255.0
         # the mask is parsed from the unfiltered face (face_enhancement.py:145)
         efp = resize_bilinear(ef, (ps, ps))
-        with self._autocast():
-            logits, _ = self._run("parsenet", efp, efp / 255.0 * 2.0 - 1.0)
-        mask_sharp = parse_mask(logits.float(), _constants_on(efp.device)["cmap"])[:, None] / 255.0
+        logits, _ = self.nets["parsenet"](efp / 255.0 * 2.0 - 1.0)
+        mask_sharp = parse_mask(logits.float(), constant_on(FACE_MASK_COLORMAP, efp.device))
+        mask_sharp = mask_sharp[:, None] / 255.0
         mask_sharp = resize_bilinear(mask_sharp, (512, 512))
         tmp_mask = resize_bilinear(mask_postprocess(mask_sharp, thres=26), (s, s))
         ef = torch.where(small[:, None, None, None], small_face_filter(ef), ef)
@@ -301,12 +242,6 @@ class FaceEnhancer:
                 mask_sharp_w = gaussian_blur(packed[:, 4:5], 9, 1.0)
                 out = base * (1.0 - mask_sharp_w) + out * mask_sharp_w
         return _to_u8(torch.where(valid[:, None, None, None], out, base))
-
-    @torch.no_grad()
-    def _super_resolve(self, x: torch.Tensor) -> torch.Tensor:
-        with self._autocast():
-            out = self._run("srmodel", x, x / 255.0)
-        return (torch.clamp(out.float(), 0.0, 1.0) * 255.0).to(torch.uint8).float()
 
     @torch.no_grad()
     def process_batch(self, frames, ori_frames=None, face_enhance: bool = True,
@@ -357,7 +292,8 @@ class FaceEnhancer:
         if self.use_sr:
             # SR the frame; locate and warp the face on the bilinear-2x
             # frame (face_enhancement.py:103-106)
-            base = self._super_resolve(c)
+            sr = self.nets["srmodel"](c / 255.0)
+            base = (torch.clamp(sr.float(), 0.0, 1.0) * 255.0).to(torch.uint8).float()
             c = _to_u8(resize_bilinear(c, base.shape[2:])).float()
         else:
             base = ori

@@ -41,15 +41,14 @@ method (``step1.landmarks``, ``step1.ffhq_crop``, ``step2.coeffs``,
 ``step3.stabilize``, ``step5.enhance_reference``, ``step6.synthesize``);
 inside ``synthesize`` ``step6.reference_faces``, and per batch
 ``step6.lipsync``, ``step6.mouth_tail``, ``step6.final_stage`` and
-``step6.to_host``; ``net.<name>`` around each network's call.
+``step6.to_host``.
 
-S3FD, FAN and ReconNet run in full f32 (no TF32), S3FD and FAN with bf16
-convs under ``model.detector_dtype=bfloat16`` (their decodes in f32); DNet
-and ENet under bf16 autocast on the card when ``model.dtype`` is bfloat16.
-``model.approx_warp`` takes ``affine_warp_shear`` for the reference faces'
-warps. Public layout as s2v_tpu: NHWC uint8 frames, x1y1x2y2 boxes,
-[N, 68, 2] landmarks. Frames cross to the device once; intermediates stay
-there as NCHW float tensors.
+Each network is called through its ``s2v_torch.pipeline.nets.Net``
+(stage ``pipeline``), which sets its precision; S3FD's and FAN's decodes
+run in f32. ``model.approx_warp`` takes ``affine_warp_shear`` for the
+reference faces' warps. Public layout as s2v_tpu: NHWC uint8 frames,
+x1y1x2y2 boxes, [N, 68, 2] landmarks. Frames cross to the device once;
+intermediates stay there as NCHW float tensors.
 """
 
 from __future__ import annotations
@@ -62,7 +61,7 @@ import numpy as np
 import torch
 
 from s2v_torch.audio.melspec import mel_chunks_for_frames, melspectrogram, num_mel_chunks
-from s2v_torch.device import bf16_autocast, full_f32, resolve_device, timed_convolutions
+from s2v_torch.device import constant_on, full_f32, resolve_device
 from s2v_torch.io.audio_io import load_wav
 from s2v_torch.io.video_io import VideoReader, VideoWriter, mux_audio
 from s2v_torch.models.fan import (box_to_center_scale, crop_faces_batched,
@@ -71,16 +70,15 @@ from s2v_torch.models.s3fd import BGR_MEAN, best_boxes, pad_and_smooth_boxes
 from s2v_torch.ops.image import frames_to_nchw, resize_bilinear
 from s2v_torch.ops.warp import (affine_warp, affine_warp_shear, crop_resize_boxes,
                                 paste_resize_boxes)
-from s2v_torch.parallel.mesh import map_frames, replica_on
+from s2v_torch.parallel.mesh import map_frames
 from s2v_torch.pipeline.align import (compute_transform, crop_quad_params, ffhq_crop_box,
                                       quad_from_cxy)
 from s2v_torch.pipeline.face3d_prep import align_img
+from s2v_torch.pipeline.nets import stage_nets
 from s2v_torch.pipeline.utils import find_crop_norm_ratio, transform_semantic
 from s2v_torch.utils.cache import ArtifactCache
 from s2v_torch.utils import trace
 from s2v_torch.utils.config import PipelineConfig
-
-_MODULES = ("s3fd", "fan", "recon", "dnet", "enet")
 
 # Version of the Steps 1-5 artifact chain, s2v_tpu's: shared by every
 # stage's cache key, so a bump invalidates the whole chain and the two
@@ -171,17 +169,12 @@ class LipSyncPipeline:
         self.models = models
         self.mesh = mesh
         self.device = mesh.first if mesh is not None else resolve_device(device)
-        for name in _MODULES:
-            module = getattr(models, name)
-            if module is not None:
-                module.to(self.device).eval()
-        self.amp = cfg.model.dtype == "bfloat16" and self.device.type == "cuda"
-
-    def _net(self, name: str, x: torch.Tensor, *args):
-        """The network ``name`` of the models (its replica on ``x``'s
-        device) called on ``args``, inside span ``net.<name>``."""
-        module = replica_on(getattr(self.models, name), x.device, self.mesh)
-        return trace.call(f"net.{name}", module, *args)
+        # ``models``, not ``self``: a cycle would keep dropped modules (``Net``)
+        self.nets = stage_nets("pipeline", lambda name: getattr(models, name), mesh=mesh,
+                               dtype=cfg.model.dtype, det_dtype=cfg.model.detector_dtype)
+        for name in self.nets:
+            if getattr(models, name) is not None:
+                getattr(models, name).to(self.device).eval()
 
     def _map(self, fn, *xs):
         """``fn`` over the mesh's data axis (``map_frames``), or once."""
@@ -192,39 +185,21 @@ class LipSyncPipeline:
         if missing:
             raise RuntimeError(f"the pipeline needs the models: {', '.join(missing)}")
 
-    def _autocast(self):
-        return torch.autocast(self.device.type, dtype=torch.bfloat16, enabled=self.amp)
-
-    def _det_autocast(self):
-        """S3FD's and FAN's convs in bf16 under ``model.detector_dtype``."""
-        return bf16_autocast(self.device, self.cfg.model.detector_dtype)
-
     # ------------------------------------------------------------------
     # Step 1: detection + landmarks
     # ------------------------------------------------------------------
 
     def _detect(self, x: torch.Tensor):
         """x [B, 3, H, W] RGB 0..255 -> (boxes [B, 4], valid [B])."""
-        mean = torch.tensor(BGR_MEAN, device=x.device).view(1, 3, 1, 1)
-        with self._det_autocast():
-            outs = self._net("s3fd", x, x.flip(1) - mean)
+        outs = self.nets["s3fd"](x.flip(1) - constant_on(BGR_MEAN, x.device).view(1, 3, 1, 1))
         return best_boxes([(c.float(), r.float()) for c, r in outs])
 
     def _landmarks(self, x: torch.Tensor):
         """x [B, 3, H, W] RGB 0..255 -> (boxes, valid, landmarks [B, 68, 2])."""
         boxes, valid = self._detect(x)
         centers, scales = box_to_center_scale(boxes)
-        hm = self._fan(crop_faces_batched(x, centers, scales))
+        hm = self.nets["fan"](crop_faces_batched(x, centers, scales))
         return boxes, valid, heatmaps_to_landmarks(hm.float(), centers, scales)
-
-    def _fan(self, crops: torch.Tensor) -> torch.Tensor:
-        """FAN's heatmaps of crops [B, 3, 256, 256] in [0, 1], each
-        convolution's algorithm timed once per shape on the card
-        (``timed_convolutions``). Counter ``conv.timed.fan`` counts the
-        calls."""
-        with self._det_autocast(), timed_convolutions():
-            trace.count("conv.timed.fan")
-            return self._net("fan", crops, crops)
 
     @torch.no_grad()
     def _sweep(self, fn, frames, batch: int):
@@ -321,8 +296,7 @@ class LipSyncPipeline:
         with full_f32():
             for i in range(0, n, batch):
                 x = frames_to_nchw(aligned[i:i + batch], self.device) / 255.0
-                coeffs.append(self._map(lambda c: self._net("recon", c, c).float(),
-                                        x).cpu().numpy())
+                coeffs.append(self._map(lambda c: self.nets["recon"](c).float(), x).cpu().numpy())
         return np.concatenate([np.concatenate(coeffs), trans_params], axis=1)
 
     # ------------------------------------------------------------------
@@ -368,8 +342,7 @@ class LipSyncPipeline:
                    else src[:1].expand(n, *src.shape[1:]))
 
         def run(img, co):
-            with self._autocast():
-                fake = self._net("dnet", img, img, co)["fake_image"]
+            fake = self.nets["dnet"](img, co)["fake_image"]
             return torch.clamp((fake.float() + 1.0) / 2.0 * 255.0, 0, 255).to(torch.uint8)
 
         out = []
@@ -458,8 +431,7 @@ class LipSyncPipeline:
         masked = ofaces.clone()
         masked[:, :, img // 2:] = 0.0
         ref = refs / 255.0
-        with self._autocast():
-            pred, _ = self._net("enet", mel, mel, torch.cat([masked, ref], 1), ref)
+        pred, _ = self.nets["enet"](mel, torch.cat([masked, ref], 1), ref)
         pred = torch.clamp(pred.float(), 0.0, 1.0)
         if self.cfg.infer.without_rl1:
             editor = self.models.up_face_editor

@@ -8,7 +8,7 @@ editor of ``--up_face``.
 only_center_face=True, paste_back=True) (GFPGAN/gfpgan/utils.py:97-143),
 batched: RetinaFace finds the best face, a closed-form umeyama similarity
 maps its 5 landmarks to the facexlib 512^2 template, the frame is warped to
-the template crop, GFPGAN restores it (bf16 autocast on the card) and one
+the template crop, GFPGAN restores it and one
 4-channel inverse warp pastes it back with its coverage. A frame whose face
 scores under ``threshold`` keeps its pixels. Supplied landmarks (config
 ``model.reuse_detections``) replace the detector, and every frame is then
@@ -16,11 +16,12 @@ valid. GFPGAN is either arch: GFPGANv1Clean (GFPGANv1.3/1.4) or the
 original GFPGANv1 (GFPGANv1.pth, on the K1/K3 kernels), whose tuple output
 gives its image first.
 
-s2v_tpu's options: ``det_dtype`` (config ``model.detector_dtype``) runs
-the convs of RetinaFace and of the tail's ParseNet in bf16 (the decodes stay
-f32); ``approx_warp`` takes ``affine_warp_shear`` for both warps; ``mesh``
-(a ``FrameMesh``) splits each chunk over its data axis, ``chunk`` frames per
-data device, each slice on the modules' replica on its device.
+Each network is called through its ``s2v_torch.pipeline.nets.Net``
+(stages ``restorer``, ``mouth`` and ``editor``), which sets its precision:
+``det_dtype`` (config ``model.detector_dtype``) is that of RetinaFace and
+the tail's ParseNet. ``approx_warp`` takes ``affine_warp_shear`` for both
+warps; ``mesh`` (a ``FrameMesh``) splits each chunk over its data axis,
+``chunk`` frames per data device.
 
 ``make_mouth_restorer`` adds the mouth blend and returns the pipeline's
 ``mouth_restorer`` hook; ``make_up_face_editor`` the ``up_face_editor``
@@ -31,35 +32,26 @@ the valid flags stay (nothing synchronises).
 
 from __future__ import annotations
 
-import functools
 from typing import Callable, Optional
 
 import numpy as np
 import torch
 
-from s2v_torch.device import bf16_autocast, full_f32, resolve_device
+from s2v_torch.device import resolve_device
 from s2v_torch.models.ganimation import EXP_AUS, apply_expression
 from s2v_torch.models.parsenet import MOUTH_COLORMAP, parse_mask
-from s2v_torch.models.retinaface import RETINA_MEAN, detect_faces
 from s2v_torch.ops.image import frames_to_nchw, resize_bilinear
 from s2v_torch.ops.warp import (affine_warp, affine_warp_shear, crop_resize_boxes,
                                 paste_resize_boxes)
-from s2v_torch.parallel.mesh import map_frames, per_device_chunk, replica_on
+from s2v_torch.parallel.mesh import map_frames, per_device_chunk
 from s2v_torch.pipeline.enhance import _to_u8, umeyama_similarity_batched
+from s2v_torch.pipeline.nets import Net, retinaface_detect, stage_nets
 from s2v_torch.pipeline.utils import laplacian_pyramid_blend
-from s2v_torch.utils import trace
 
 # facexlib FaceRestoreHelper's 512^2 face template
 FACEXLIB_TEMPLATE_512 = np.array(
     [[192.98138, 239.94708], [318.90277, 240.1936], [256.63416, 314.01935],
      [201.26117, 371.41043], [313.08905, 371.15118]], np.float32)
-
-
-@functools.lru_cache(maxsize=None)
-def _retina_mean_on(device: torch.device) -> torch.Tensor:
-    """RetinaFace's BGR means on ``device``, copied there once (a copy from
-    the host at every call synchronises with the card's queue)."""
-    return torch.tensor(RETINA_MEAN, device=device).view(1, 3, 1, 1)
 
 
 def _f32_on(x, device: torch.device) -> torch.Tensor:
@@ -76,9 +68,8 @@ class GFPGANRestorer:
     models: 'gfpgan' (GFPGANv1Clean or GFPGANv1; the template crop is its
     ``out_size``, 512 in the reference, gfpgan/utils.py:76-82) and
     'retinaface' (may be left out when every call supplies ``landmarks5``).
-    ``dtype`` is GFPGAN's compute dtype on the card (autocast);
-    ``det_dtype`` RetinaFace's (bfloat16: autocast on any device, as
-    s2v_tpu casts its input); ``approx_warp`` takes the sheared warps."""
+    ``dtype`` and ``det_dtype`` are ``model.dtype`` and
+    ``model.detector_dtype``; ``approx_warp`` takes the sheared warps."""
 
     threshold = 0.9  # GFPGANer's face score threshold
 
@@ -93,27 +84,13 @@ class GFPGANRestorer:
         self.size = 2 ** self.models["gfpgan"].log_size
         self.template = torch.from_numpy(FACEXLIB_TEMPLATE_512 * (self.size / 512.0)).to(
             self.device)
-        self.amp = dtype == "bfloat16" and self.device.type == "cuda"
-        self.det_dtype = det_dtype
         self.warp = affine_warp_shear if approx_warp else affine_warp
+        self.nets = stage_nets("restorer", self.models.get, dtype=dtype, det_dtype=det_dtype,
+                               mesh=mesh, owner="GFPGANRestorer")
 
-    def _run(self, name: str, x: torch.Tensor, *args):
-        """The model ``name`` (its replica on ``x``'s device) called on
-        ``args``, inside span ``net.<name>``."""
-        return trace.call(f"net.{name}", replica_on(self.models[name], x.device, self.mesh),
-                          *args)
-
-    @torch.no_grad()
     def _detect(self, x: torch.Tensor):
-        """RetinaFace on frames [k, 3, H, W] RGB 0..255, full f32 or bf16
-        convs (``det_dtype``), the decode in f32: (boxes [k, 4], landmarks
-        [k, 5, 2], valid [k])."""
-        if "retinaface" not in self.models:
-            raise ValueError("GFPGANRestorer needs a 'retinaface' model unless landmarks5 "
-                             "are supplied")
-        with full_f32(), bf16_autocast(x.device, self.det_dtype):
-            outs = self._run("retinaface", x, x.flip(1) - _retina_mean_on(x.device))
-        return detect_faces(tuple(o.float() for o in outs), x.shape[2:], self.threshold)
+        """RetinaFace on frames [k, 3, H, W] RGB 0..255 (``retinaface_detect``)."""
+        return retinaface_detect(self.nets["retinaface"], x, self.threshold)
 
     @torch.no_grad()
     def _restore_paste(self, x: torch.Tensor, landms: torch.Tensor,
@@ -124,8 +101,7 @@ class GFPGANRestorer:
         s = self.size
         tfms, _ = umeyama_similarity_batched(landms, self.template.to(x.device))  # frame -> crop
         face = self.warp(x, tfms, (s, s))
-        with torch.autocast(self.device.type, dtype=torch.bfloat16, enabled=self.amp):
-            out = self._run("gfpgan", face, (face / 255.0 - 0.5) / 0.5)
+        out = self.nets["gfpgan"]((face / 255.0 - 0.5) / 0.5)
         if isinstance(out, tuple):  # GFPGANv1: (image, the U-Net's RGB heads)
             out = out[0]
         restored = torch.clamp((out.float() + 1.0) / 2.0, 0.0, 1.0) * 255.0
@@ -164,11 +140,10 @@ class GFPGANRestorer:
 
 class MouthRestorer:
     """The pipeline's ``mouth_restorer`` hook (inference.py:299-312), batched:
-    GFPGAN restore, ParseNet's mouth mask on the face box (f32, at
-    ``parse_size``; bf16 convs when the restorer's ``det_dtype`` is
-    bfloat16, as s2v_tpu's cli sets both from ``model.detector_dtype``), the
-    10-level Laplacian blend at 512^2 of the restored frame over the
-    input."""
+    GFPGAN restore, ParseNet's mouth mask on the face box (at
+    ``parse_size``, in the restorer's RetinaFace dtype, as s2v_tpu's cli sets
+    both from ``model.detector_dtype``), the 10-level Laplacian blend at
+    512^2 of the restored frame over the input."""
 
     def __init__(self, restorer: GFPGANRestorer, parsenet: torch.nn.Module,
                  parse_size: int = 512):
@@ -176,6 +151,8 @@ class MouthRestorer:
         self.device = restorer.device
         self.parsenet = parsenet.to(self.device).eval()
         self.parse_size = int(parse_size)
+        self.net = Net("mouth", "parsenet", lambda: parsenet,  # no cycle through self
+                       det_dtype=restorer.nets["retinaface"].dtype, mesh=restorer.mesh)
 
     @torch.no_grad()
     def _blend(self, restored: torch.Tensor, frames: torch.Tensor,
@@ -187,9 +164,7 @@ class MouthRestorer:
         ps = self.parse_size
         k, _, h, w = frames.shape
         crop = crop_resize_boxes(restored, boxes, (ps, ps))
-        parsenet = replica_on(self.parsenet, crop.device, self.restorer.mesh)
-        with full_f32(), bf16_autocast(crop.device, self.restorer.det_dtype):
-            logits, _ = trace.call("net.parsenet", parsenet, crop / 255.0 * 2.0 - 1.0)
+        logits, _ = self.net(crop / 255.0 * 2.0 - 1.0)
         mm = parse_mask(logits.float(), MOUTH_COLORMAP)[:, None] / 255.0
         mouth = paste_resize_boxes(frames.new_zeros(k, 1, h, w), mm, boxes)
         blended = laplacian_pyramid_blend(resize_bilinear(restored, (512, 512)),
@@ -248,14 +223,12 @@ def make_up_face_editor(models: dict, up_face: str, device=None,
     dev = mesh.first if mesh is not None else resolve_device(device)
     gen = models["ganimation"].to(dev).eval()
     aus = torch.tensor(EXP_AUS[up_face], dtype=torch.float32, device=dev)[None]
+    net = Net("editor", "ganimation", lambda: gen, mesh=mesh)
 
     @torch.no_grad()
     def hook(faces01: torch.Tensor) -> torch.Tensor:
         small = resize_bilinear(faces01 * 2.0 - 1.0, (128, 128))
-        g = replica_on(gen, small.device, mesh)
-        with full_f32():
-            color, att, _ = trace.call("net.ganimation", g, small,
-                                       aus.to(small.device).expand(len(small), -1))
+        color, att, _ = net(small, aus.to(small.device).expand(len(small), -1))
         fake = apply_expression(small, color, att)
         return torch.clamp(resize_bilinear(fake / 2.0 + 0.5, faces01.shape[2:]), 0.0, 1.0)
 

@@ -134,12 +134,6 @@ class span:
         return spanned
 
 
-def call(name: str, module, *args, **kwargs):
-    """``module(*args, **kwargs)`` inside span ``name``: a network's call."""
-    with span(name):
-        return module(*args, **kwargs)
-
-
 def count(name: str, n: int = 1) -> None:
     """Add ``n`` to counter ``name``. Each thread adds to a table of its
     own, so counting takes no lock (it runs at every kernel launch)."""

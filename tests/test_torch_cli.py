@@ -290,7 +290,8 @@ def test_unported_settings_raise(ckpt, tmp_path, flags):
     shear = cfg.model.approx_warp
     assert all((e.warp is affine_warp_shear) == shear for e in (restorer, final, step5))
     det = cfg.model.detector_dtype
-    assert restorer.det_dtype == final.det_dtype == step5.det_dtype == det
+    assert all(e.nets["retinaface"].dtype == det for e in (restorer, final, step5))
+    assert models.mouth_restorer.net.dtype == det
     assert pipe.cfg.infer.box == (tuple(int(v) for v in flags[1:]) if flags[0] == "--box"
                                   else (-1, -1, -1, -1))
     assert pipe.cfg.infer.cropped_image == (flags == ["--cropped_image"])

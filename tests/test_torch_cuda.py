@@ -396,7 +396,7 @@ def _decode_margins(hm):
 @pytest.mark.cuda
 def test_fan_timed_route_on_the_card_matches_the_heuristic_route_and_the_cpu(card, tmp_path):
     """Full-width FAN at batches 32 and 18 on 256^2 crops through the
-    pipeline's FAN call (``LipSyncPipeline._fan``: cuDNN's autotuner, f32
+    pipeline's FAN call (``LipSyncPipeline.nets["fan"]``: cuDNN's autotuner, f32
     without TF32): once its plans are timed it runs no FFT kernel; its
     heatmaps lie within 1e-4 of their scale of cuDNN's heuristic route's
     and of the CPU's; and its landmarks decode equal to theirs wherever the
@@ -425,9 +425,9 @@ def test_fan_timed_route_on_the_card_matches_the_heuristic_route_and_the_cpu(car
                            PipelineModels(fan=fan), device=card)
     with torch.no_grad(), full_f32():
         for c in crops:  # the autotuner's trials, FFT candidates among them
-            pipe._fan(c.to(card))
+            pipe.nets["fan"](c.to(card))
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            timed = [pipe._fan(c.to(card)).cpu() for c in crops]
+            timed = [pipe.nets["fan"](c.to(card)).cpu() for c in crops]
     kernels = [e.key for e in prof.key_averages() if e.device_time_total > 0]
     assert not [k for k in kernels if "fft" in k.lower() or "cf32" in k], kernels
     centers = torch.full((1, 2), 128.0)
@@ -1110,7 +1110,8 @@ def test_final_stage_replays_its_one_frame_networks_bit_for_bit(card, monkeypatc
     def run(replayed):
         enh = FaceEnhancer(models, in_size=2048, dtype="bfloat16", parse_size=512, device=card)
         if not replayed:
-            monkeypatch.setattr(enh, "_replay", lambda *a: None)
+            for net in enh.nets.values():
+                monkeypatch.setattr(net, "_replay", lambda *a: None)
         passes = []
         for k in range(2):
             reset_launch_counts()
@@ -1137,6 +1138,6 @@ def test_final_stage_replays_its_one_frame_networks_bit_for_bit(card, monkeypatc
     # each network's first call runs eagerly, the second captures and replays
     assert collections.Counter(r.tag for r in records if r.name == "graph.replay") == {
         "net.sr": 5, "net.retinaface": 5, "net.parsenet": 5}
-    gpen = enh._replays[models["facegan"]]
+    gpen = enh.nets["facegan"].replays[models["facegan"]]
     assert gpen.declined is True and not gpen.graphs
     trace.reset()

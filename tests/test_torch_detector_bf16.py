@@ -32,7 +32,7 @@ import jax.numpy as jnp
 
 import s2v_tpu.models.fan as j_fan
 import s2v_tpu.models.s3fd as j_s3fd
-from s2v_torch.device import bf16_autocast
+from s2v_torch.device import precision
 from s2v_torch.models import fan as t_fan
 from s2v_torch.models.parsenet import MOUTH_COLORMAP
 from s2v_torch.models.parsenet import ParseNet as TParseNet
@@ -88,7 +88,7 @@ def sweep():
     cfg = t_cfg.PipelineConfig(model=t_cfg.ModelConfig(detector_dtype="bfloat16"))
     pipe = t_inf.LipSyncPipeline(cfg, models, device="cpu")
     t_lms, t_boxes = pipe.extract_landmarks(frames, return_boxes=True)
-    with torch.no_grad(), bf16_autocast(CPU, "bfloat16"):  # the port's raw bf16 outputs
+    with torch.no_grad(), precision("detector", CPU, "bfloat16"):  # the port's raw bf16 outputs
         xt = torch.from_numpy(x).permute(0, 3, 1, 2)
         outs = models.s3fd(xt.flip(1) - torch.tensor(t_s3fd.BGR_MEAN).view(1, 3, 1, 1))
         t_hm = models.fan(torch.from_numpy(crops).permute(0, 3, 1, 2)).float().numpy()
@@ -155,7 +155,7 @@ def test_retinaface_in_bf16_matches_jax():
                                   "retinaface": model}, det_dtype="bfloat16", device="cpu")
     xt = torch.from_numpy(x).permute(0, 3, 1, 2)
     t_boxes, t_landms, _ = restorer._detect(xt)
-    with torch.no_grad(), bf16_autocast(CPU, "bfloat16"):  # its raw scores
+    with torch.no_grad(), precision("detector", CPU, "bfloat16"):  # its raw scores
         outs = model(xt.flip(1) - torch.tensor(j_rf.RETINA_MEAN).view(1, 3, 1, 1))
     diff = np.abs(outs[1][..., 1].float().numpy() - scores).max()
     ok = top2_margin(scores, 1) > diff

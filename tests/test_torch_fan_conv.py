@@ -1,4 +1,4 @@
-"""FAN's call inside the landmark sweep (``LipSyncPipeline._fan``), on the
+"""FAN's call inside the landmark sweep (``LipSyncPipeline.nets["fan"]``), on the
 CPU: it runs under cuDNN's autotuner and in full f32 (TF32 off), restores
 both flags after a call and after an exception, counts ``conv.timed.fan``
 once a call, and leaves the CPU's landmarks bit for bit what the plain
